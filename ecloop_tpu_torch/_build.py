@@ -3,9 +3,11 @@
 All `csrc/*.cu` named in SOURCES are compiled with nvcc for Hopper
 (`sm_90a`) into `build/ecloop_tpu_torch/` at the repository root, on
 first use, keyed by a hash of the sources and flags: a checkout that
-holds only the sources builds everything on its first kernel call.  The
-library has a plain C interface, loaded with ctypes; every pointer and
-the stream pass as `c_void_p`.
+holds only the sources builds everything on its first kernel call.  One
+nvcc per source, all started together, then one link.  What ptxas says
+of each kernel (registers, spills) is kept beside the library in
+`log_path()`.  The library has a plain C interface, loaded with ctypes;
+every pointer and the stream pass as `c_void_p`.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("hash160.cu", "inv_batch.cu")
+SOURCES = ("hash160.cu", "inv_batch.cu", "mixed_add.cu")
 HEADERS = ("field.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ecloop_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -49,6 +51,10 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libecloop_kernels_{_source_key()}.so")
 
 
+def log_path() -> str:
+    return library_path()[:-len(".so")] + ".log"
+
+
 def build() -> str:
     """Compile the kernels unless this exact build exists; returns the
     library path."""
@@ -56,19 +62,34 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _obj, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(log[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", so, *(obj for _c, obj, _p in jobs)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        with open(os.path.join(tmp, "lib.log"), "w") as f:
+            f.write("\n".join(log))
+        os.replace(os.path.join(tmp, "lib.log"), log_path())
+        os.replace(so, path)
     return path
 
 
@@ -82,5 +103,7 @@ def lib() -> ctypes.CDLL:
         cdll.ecl_hash160.restype = ctypes.c_int
         cdll.ecl_inv_batch.argtypes = [vp, vp, vp, ll, ll, vp]
         cdll.ecl_inv_batch.restype = ctypes.c_int
+        cdll.ecl_mixed_add.argtypes = [vp] * 7 + [ll, ctypes.c_int, vp]
+        cdll.ecl_mixed_add.restype = ctypes.c_int
         _lib = cdll
     return _lib

@@ -22,7 +22,7 @@ import struct
 import numpy as np
 import torch
 
-from ecloop_tpu import native
+from . import native
 
 BLF_MAGIC = 0x45434246
 BLF_VERSION = 1

@@ -46,6 +46,28 @@ static __device__ __forceinline__ void fe_set(fe& a, uint32_t v0) {
   for (int i = 1; i < 8; ++i) a.v[i] = 0;
 }
 
+// Word i of p, little-endian.
+static __device__ __forceinline__ constexpr uint32_t fe_p_word(int i) {
+  return i == 0 ? 0xFFFFFC2Fu : i == 1 ? 0xFFFFFFFEu : 0xFFFFFFFFu;
+}
+
+// r = a + (2^32 + 977) mod 2^256; returns the carry out of 2^256.  For
+// a < 2^256 that carry is set exactly when a >= p, and r is then a - p.
+static __device__ __forceinline__ uint32_t fe_add_pc(fe& r, const fe& a) {
+  uint64_t t = (uint64_t)a.v[0] + 977u;
+  r.v[0] = (uint32_t)t;
+  t = (uint64_t)a.v[1] + 1u + (t >> 32);
+  r.v[1] = (uint32_t)t;
+  uint64_t c = t >> 32;
+#pragma unroll
+  for (int i = 2; i < 8; ++i) {
+    t = (uint64_t)a.v[i] + c;
+    r.v[i] = (uint32_t)t;
+    c = t >> 32;
+  }
+  return (uint32_t)c;
+}
+
 // r = (w[0..15] as a 512-bit value) mod p, fully reduced.
 static __device__ __forceinline__ void fe_reduce(fe& r, const uint32_t (&w)[16]) {
   // X = lo + hi * (2^32 + 977): word i takes lo[i] + 977 hi[i] + hi[i-1]
@@ -82,20 +104,78 @@ static __device__ __forceinline__ void fe_reduce(fe& r, const uint32_t (&w)[16])
     r.v[i] = (uint32_t)t;
     c = t >> 32;
   }
-  // r < 2^256 < 2p: r >= p exactly when r + (2^32 + 977) carries out of 2^256
+  // r < 2^256 < 2p: one conditional subtraction of p
   fe s;
-  t = (uint64_t)r.v[0] + 977u;
-  s.v[0] = (uint32_t)t;
-  t = (uint64_t)r.v[1] + 1u + (t >> 32);
-  s.v[1] = (uint32_t)t;
-  c = t >> 32;
+  if (fe_add_pc(s, r)) r = s;
+}
+
+// r = a + b mod p, for a, b < p.  r may alias a or b.
+static __device__ __forceinline__ void fe_add(fe& r, const fe& a, const fe& b) {
+  fe s;
+  uint64_t c = 0;
 #pragma unroll
-  for (int i = 2; i < 8; ++i) {
-    t = (uint64_t)r.v[i] + c;
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t t = (uint64_t)a.v[i] + b.v[i] + c;
     s.v[i] = (uint32_t)t;
     c = t >> 32;
   }
-  if (c) r = s;
+  // a + b = c * 2^256 + s < 2p: subtract p when c is set or s >= p
+  fe d;
+  const uint32_t ge = fe_add_pc(d, s);
+  r = (c | ge) ? d : s;
+}
+
+// r = a - b mod p, for a, b < p.  r may alias a or b.
+static __device__ __forceinline__ void fe_sub(fe& r, const fe& a, const fe& b) {
+  fe d;
+  uint64_t brw = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t t = (uint64_t)a.v[i] - b.v[i] - brw;
+    d.v[i] = (uint32_t)t;
+    brw = t >> 63;
+  }
+  if (brw) {  // a < b: add p back, mod 2^256
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint64_t t = (uint64_t)d.v[i] + fe_p_word(i) + c;
+      d.v[i] = (uint32_t)t;
+      c = t >> 32;
+    }
+  }
+  r = d;
+}
+
+// r = p - a for a < p; 0 -> 0.  r may alias a.
+static __device__ __forceinline__ void fe_neg(fe& r, const fe& a) {
+  if (fe_is_zero(a)) {
+    r = a;
+    return;
+  }
+  uint64_t brw = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t t = (uint64_t)fe_p_word(i) - a.v[i] - brw;
+    r.v[i] = (uint32_t)t;
+    brw = t >> 63;
+  }
+}
+
+// r = a * k mod p for a small constant k < 2^16.  r may alias a.
+static __device__ __forceinline__ void fe_mul_small(fe& r, const fe& a, uint32_t k) {
+  uint32_t w[16];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t t = (uint64_t)a.v[i] * k + c;
+    w[i] = (uint32_t)t;
+    c = t >> 32;
+  }
+  w[8] = (uint32_t)c;
+#pragma unroll
+  for (int i = 9; i < 16; ++i) w[i] = 0;
+  fe_reduce(r, w);
 }
 
 // r = a * b mod p.  r may alias a or b.

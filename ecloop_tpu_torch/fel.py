@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecloop_tpu import golden
+from . import golden
 
 P = golden.P
 NLIMBS = 16

@@ -21,9 +21,7 @@ import os
 import numpy as np
 import torch
 
-from ecloop_tpu import native
-
-from . import bloom
+from . import bloom, native
 
 
 @dataclasses.dataclass

@@ -3,6 +3,7 @@
 
   K1  addr33_hash_rows / addr65_hash_rows  -> csrc/hash160.cu
   K2  inv_mod_batch                        -> csrc/inv_batch.cu
+  K3  proj_add_affine                      -> csrc/mixed_add.cu
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the kernel on the current stream, or raises.  Every
@@ -15,10 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, fel, hash160
+from . import _build, ecc, fel, hash160
 
 NLIMBS = 16
-LAUNCHES = {"hash160": 0, "inv_mod_batch": 0}
+LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0}
 # elements one K2 thread chains: the Fermat chain per thread against the
 # number of threads in flight (chosen, not tuned)
 INV_CHUNK = 16
@@ -43,6 +44,13 @@ def _check_limbs(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: kernel input must be contiguous")
 
 
+def _check_same(ref: torch.Tensor, **named) -> None:
+    for name, t in named.items():
+        if t.shape != ref.shape or t.device != ref.device:
+            raise ValueError(f"{name} {tuple(t.shape)}@{t.device} must match "
+                             f"{tuple(ref.shape)}@{ref.device}")
+
+
 def _launch(fn, *args) -> None:
     rc = getattr(_build.lib(), fn)(*args)
     if rc != 0:
@@ -52,9 +60,7 @@ def _launch(fn, *args) -> None:
 def _hash_rows(x: torch.Tensor, y: torch.Tensor, is33: bool) -> torch.Tensor:
     _check_limbs("x", x)
     _check_limbs("y", y)
-    if x.shape != y.shape or x.device != y.device:
-        raise ValueError(f"x {tuple(x.shape)}@{x.device} and y "
-                         f"{tuple(y.shape)}@{y.device} must match")
+    _check_same(x, y=y)
     if x.device.type == "cpu":
         return (hash160.addr33_hash_rows if is33
                 else hash160.addr65_hash_rows)(x, y)
@@ -96,3 +102,38 @@ def inv_mod_batch(x: torch.Tensor) -> torch.Tensor:
                     pfx.data_ptr(), n, INV_CHUNK, stream)
         LAUNCHES["inv_mod_batch"] += 1
     return out
+
+
+def proj_add_affine(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
+                    gx: torch.Tensor, gy: torch.Tensor, skip: torch.Tensor,
+                    complete: bool):
+    """K3, one `mul` window step: select(skip, q, q + g) for a projective
+    accumulator (qx : qy : qz) and an affine point (gx, gy), all (16, ...)
+    canonical limbs, skip a bool tensor of the batch shape.  complete=False
+    leaves out the doubling for q == g (see ecc.proj_add_affine_rows).
+    Returns the projective (x, y, z)."""
+    for name, t in (("qx", qx), ("qy", qy), ("qz", qz), ("gx", gx),
+                    ("gy", gy)):
+        _check_limbs(name, t)
+    _check_same(qx, qy=qy, qz=qz, gx=gx, gy=gy)
+    if not isinstance(skip, torch.Tensor) or skip.dtype != torch.bool:
+        raise TypeError("skip: expected a bool tensor")
+    if skip.shape != qx.shape[1:] or skip.device != qx.device:
+        raise ValueError(f"skip {tuple(skip.shape)}@{skip.device} must have "
+                         f"the batch shape {tuple(qx.shape[1:])}@{qx.device}")
+    if qx.device.type == "cpu":
+        nx, ny, nz = ecc.proj_add_affine_rows(qx, qy, qz, gx, gy, complete)
+        return (fel.select(skip, qx, nx), fel.select(skip, qy, ny),
+                fel.select(skip, qz, nz))
+    if not skip.is_contiguous():
+        raise ValueError("skip: kernel input must be contiguous")
+    out = torch.empty((3,) + qx.shape, dtype=torch.int64, device=qx.device)
+    n = qx[0].numel()
+    if n:
+        with torch.cuda.device(qx.device):
+            stream = torch.cuda.current_stream(qx.device).cuda_stream
+            _launch("ecl_mixed_add", qx.data_ptr(), qy.data_ptr(),
+                    qz.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                    skip.data_ptr(), out.data_ptr(), n, int(complete), stream)
+        LAUNCHES["mixed_add"] += 1
+    return out[0], out[1], out[2]

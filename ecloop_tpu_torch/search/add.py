@@ -19,9 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from ecloop_tpu import golden
-
-from .. import bloom, ecc, fel, kernels
+from .. import bloom, ecc, fel, golden, kernels
 from ..filters import Filter
 from . import common
 from .common import Found, SearchConfig
@@ -245,7 +243,7 @@ class AddSearch(RangeDriver):
             for _ in range(t_):
                 cx, cy, m = self.step_fn(cx, cy, *self.table, self.bits)
                 masks.append(m)
-            fetch = self._fetch(torch.stack(masks))
+            fetch = common.fetch_async(torch.stack(masks))
             if pending is not None:
                 found.extend(self._drain(pending, base, n_keys,
                                          hit_offsets_valid, on_found, on_step))
@@ -255,23 +253,10 @@ class AddSearch(RangeDriver):
                                      hit_offsets_valid, on_found, on_step))
         return found
 
-    @staticmethod
-    def _fetch(masks: torch.Tensor):
-        """Start the device-to-host copy of a call's masks."""
-        if masks.device.type != "cuda":
-            return masks, None
-        host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
-        host.copy_(masks, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
-
     def _drain(self, pending, base, n_keys, hit_offsets_valid, on_found,
                on_step):
-        t0, (host, done) = pending
-        if done is not None:
-            done.synchronize()
-        masks_np = host.numpy()
+        t0, fetch = pending
+        masks_np = common.fetched(fetch)
         mk = self.cfg.keys_per_step
         out = []
         for tt in range(masks_np.shape[0]):

@@ -1,13 +1,17 @@
-"""Host-side search bookkeeping (the `add` path's part of
+"""Host-side search bookkeeping (the counterpart of
 `ecloop_tpu.search.common`, plus `default_offs_size` from
-`ecloop_tpu.search.rnd`).  Scalar arithmetic is plain Python ints."""
+`ecloop_tpu.search.rnd`) and the asynchronous read-back of hit masks.
+Scalar arithmetic is plain Python ints."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterator
 
-from ecloop_tpu import golden, native
+import numpy as np
+import torch
+
+from .. import golden, native
 
 N = golden.N
 
@@ -26,6 +30,27 @@ def derive_h160(priv: int, is33: bool) -> str:
             return h.hex()
     pt = golden.point_mul(priv)
     return (golden.addr33(pt) if is33 else golden.addr65(pt)).hex()
+
+
+def fetch_async(t: torch.Tensor):
+    """Start copying `t` (hit masks) into pinned host memory on the
+    current stream; `fetched()` waits for the copy.  A CPU tensor is
+    its own copy."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def fetched(handle) -> np.ndarray:
+    """The host copy started by `fetch_async`, once it has landed."""
+    host, done = handle
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
 
 
 @dataclasses.dataclass

@@ -158,7 +158,7 @@ def test_cli_add_on_cpu(endo, k_checked):
 
 def test_cli_refuses_without_gpu_and_unported_commands(capsys):
     from ecloop_tpu_torch import cli
-    assert cli.main(["ecloop", "mul", "-f", PUZZLES]) != 0
+    assert cli.main(["ecloop", "rnd", "-f", PUZZLES]) != 0
     assert "not yet ported" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as exc:

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from ecloop_tpu_torch import fel, filters, hash160, kernels
-from ecloop_tpu_torch.search import add
+from ecloop_tpu_torch import ecc, fel, filters, golden, hash160, kernels
+from ecloop_tpu_torch.search import add, mul
 from ecloop_tpu_torch.search.common import SearchConfig
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +75,46 @@ def test_step_on_card_matches_cpu(dev):
         outs.append([t.cpu() for t in step(*state)])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [32768, 1000, 1])
+@pytest.mark.parametrize("complete", [True, False])
+def test_mixed_add_kernel_matches_plain(dev, n, complete):
+    q = [_limbs(n, s, dev) for s in (5, 6, 7)]
+    gx, gy = _limbs(n, 8, dev), _limbs(n, 9, dev)
+    keys = [3, 0xC936, golden.N - 2]
+    px, py = (fel.from_last(a, dev) for a in ecc.points_host(keys))
+    m = min(n, 3)
+    q[0][:, :m], q[1][:, :m], gx[:, :m], gy[:, :m] = px[:, :m], py[:, :m], \
+        px[:, :m], py[:, :m]                          # P == Q lanes
+    q[2][:, :m] = fel.const(1, q[2])
+    if n > 3:
+        q[2][:, 3] = 0                                # infinity accumulator
+    skip = torch.from_numpy(np.random.default_rng(10).random(n) < 0.1).to(dev)
+    before = kernels.LAUNCHES["mixed_add"]
+    got = kernels.proj_add_affine(*q, gx, gy, skip, complete)
+    nx, ny, nz = ecc.proj_add_affine_rows(*q, gx, gy, complete)
+    for g, p, old in zip(got, (nx, ny, nz), q):
+        assert torch.equal(g, fel.select(skip, old, p))
+    assert kernels.LAUNCHES["mixed_add"] == before + 1
+
+
+def test_mul_step_on_card_matches_cpu(dev):
+    filt = filters.load_filter(os.path.join(os.path.dirname(__file__), "..",
+                                            "data", "btc-bw-hash"))
+    with open(os.path.join(os.path.dirname(__file__), "..", "data",
+                           "btc-bw-priv")) as f:
+        keys = [int(ln, 16) for ln in f.read().split()[:1000]]
+    cfg = mul.SearchConfig(addr33=True, addr65=True)
+    w, batch = 8, 1024
+    dig = np.zeros((mul.n_windows(w), batch), dtype=np.int32)
+    dig[:, :len(keys)] = mul.window_digits(keys, w).T
+    table = mul.build_gtable(w, torch.device("cpu"))
+    outs = []
+    for d in ("cpu", dev):
+        step = mul.make_mul_step(cfg, filt, w, batch, d)
+        bits = torch.from_numpy(filt.device_bits.view(np.int32)).to(d)
+        outs.append(step(torch.from_numpy(dig).to(d), table.to(d), bits).cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert int(np.unpackbits(outs[0].numpy().astype("<u4").view(np.uint8)
+                             ).sum()) >= len(keys)
