@@ -32,6 +32,7 @@ SEED = 20261016
 HASH_N = 131072          # keys per K1 call at the default 32 x 4096 geometry
 INV_N = 65568            # K2 batch at that geometry: M*K/2 + M
 MUL_N = 32768            # keys per `mul` job: K3, K2 and K1 run at this width
+GTABLE_N = 155629        # K2 batch of the w=14 table build's widest round
 RATE_KEYS = 1 << 20      # keys of the `mul` rate run
 TIME_WINDOW_S = 1.0
 # least-time model (bound_ms): the larger of bytes over the memory rate and
@@ -127,7 +128,8 @@ def ptxas_report(path: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
     from the nvcc -Xptxas -v log of the build."""
     forms = {"hash160": ("_addr65", "_addr33"),
-             "mixed_add": ("_incomplete", "_complete"), "inv_batch": ("", "")}
+             "mixed_add": ("_incomplete", "_complete"),
+             "inv_batch": ("", "")}
     out, name = {}, None
     with open(path) as f:
         for line in f:
@@ -329,12 +331,19 @@ def main() -> int:
 
     # --- 2: K2 against its plain version --------------------------------------
     p = fel.P
-    err = 0
-    for n in (INV_N, 1000):
+    blk = kernels.inv_block_elements()
+    err, cases = 0, []
+    for n in (INV_N, MUL_N, GTABLE_N, 1000, 33, 1):
         a = random_limbs(rng, n)
-        for i, v in enumerate((0, 1, p - 1)):
+        for i, v in enumerate((0, 1, p - 1)[:n]):
             a[:, i] = fel.int_to_limbs(v)
-        a[:, 100:164] = 0
+        if n > 4 * blk:
+            a[:, -3:] = 0                                # zeros at the end
+            a[:, blk - 5:blk + 5] = 0                    # across a block edge
+            a[:, 2 * blk:3 * blk] = 0                    # one whole block
+        cases.append((n, a))
+    cases.append((1000, np.zeros((16, 1000), dtype=np.int64)))   # all zero
+    for n, a in cases:
         xt = torch.from_numpy(a).to(dev)
         got, want = kernels.inv_mod_batch(xt), fel.inv_mod_batch(xt)
         torch.cuda.synchronize()
@@ -349,9 +358,11 @@ def main() -> int:
             if w != (pow(v, p - 2, p) if v else 0):
                 raise AssertionError(f"K2: inverse of {v:#x} is {w:#x}")
     errs["inv_mod_batch"] = err
-    phase("2", f"K2 inv_mod_batch == plain at {INV_N} and 1000 elements "
-               f"(0, 1, p-1, a run of zeros), max abs err {err} (tolerance "
-               f"0); 64 spot checks == pow(x, p-2, p)")
+    phase("2", f"K2 inv_mod_batch == plain at {INV_N}, {MUL_N}, {GTABLE_N}, "
+               f"1000, 33 and 1 elements (0, 1, p-1 first; zeros at the end, "
+               f"across a {blk}-element block edge and over one whole block) "
+               f"and on 1000 zeros, max abs err {err} (tolerance 0); 64 spot "
+               f"checks each == pow(x, p-2, p)")
 
     # --- a: K3 against its plain version ----------------------------------------------
     (qx, qy, qz), (gx, gy), skip, (hq, hg, hz) = window_lanes(rng, MUL_N, dev)
@@ -489,6 +500,7 @@ def main() -> int:
     x = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
     y = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
     xi = torch.from_numpy(random_limbs(rng, INV_N)).to(dev)
+    xm = torch.from_numpy(random_limbs(rng, MUL_N)).to(dev)
     # K3 as the main path runs it: a digit of 0 (skip) is 1 in 2^14
     q = [torch.from_numpy(random_limbs(rng, MUL_N)).to(dev) for _ in range(5)]
     no_skip = torch.zeros(MUL_N, dtype=torch.bool, device=dev)
@@ -501,7 +513,11 @@ def main() -> int:
                            lambda: hash160.addr65_hash_rows(x, y),
                            "hash160_kernel<false>"),
         "inv_mod_batch": (lambda: kernels.inv_mod_batch(xi),
-                          lambda: fel.inv_mod_batch(xi), "inv_batch_kernel"),
+                          lambda: fel.inv_mod_batch(xi),
+                          "inv_batch_kernel"),
+        "inv_mod_batch_mul": (lambda: kernels.inv_mod_batch(xm),
+                              lambda: fel.inv_mod_batch(xm),
+                              "inv_batch_kernel"),
     }
     for c in (False, True):
         timed[f"mixed_add_{'complete' if c else 'incomplete'}"] = (
@@ -513,18 +529,26 @@ def main() -> int:
     for name, (kern, plain, kname) in timed.items():
         call_ms[name], plain_ms = paired_ms(kern, plain)
         t[name] = (device_ms(kern, kname), plain_ms)
+    # K2's chain floor: one element, so one block and one inversion
+    x1 = torch.from_numpy(random_limbs(rng, 1)).to(dev)
+    chain_ms = device_ms(lambda: kernels.inv_mod_batch(x1), "inv_batch_kernel")
     limb = 8                                        # bytes of one int64 limb
     active = int((~fel.is_zero(q[2])).sum())
-    chunks = -(-INV_N // kernels.INV_CHUNK)
+
+    def inv_bound(n):
+        # Montgomery's trick needs 3 multiplies per element and one
+        # inversion per call, counted as the Fermat chain's 255 squarings
+        # and 15 multiplies, however a kernel cuts the batch; 16 limbs in
+        # and 16 out per element
+        return bound(n * 32 * limb, (3 * n + 270) * FE_MUL_OPS)
+
     bounds = {
         "hash160": bound(HASH_N * HASH_LIMBS[True] * limb,
                          HASH_N * HASH_OPS[True]),
         "hash160_addr65": bound(HASH_N * HASH_LIMBS[False] * limb,
                                 HASH_N * HASH_OPS[False]),
-        # Montgomery's trick: 3 multiplies per element, and a 270-multiply
-        # Fermat chain per chunk of INV_CHUNK elements
-        "inv_mod_batch": bound(INV_N * 32 * limb,
-                               (3 * INV_N + 270 * chunks) * FE_MUL_OPS),
+        "inv_mod_batch": inv_bound(INV_N),
+        "inv_mod_batch_mul": inv_bound(MUL_N),
         "mixed_add_incomplete": bound(MUL_N * (128 * limb + 1),
                                       active * (12 * FE_MUL_OPS + FE_SMALL_OPS)),
         "mixed_add_complete": bound(MUL_N * (128 * limb + 1),
@@ -532,12 +556,16 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in t.items():
         n = {"inv": INV_N, "mix": MUL_N}.get(name[:3], HASH_N)
+        n = MUL_N if name.endswith("_mul") else n
         b_ms, b_by = bounds[name]
         phase("6", f"{name} at n={n}: kernel {k_ms:.4f} ms on the device "
                    f"(torch.profiler, mean of 20 calls), {call_ms[name]:.4f} ms "
                    f"per wrapper call, plain {p_ms:.4f} ms (CUDA events, "
                    f"windows >= {TIME_WINDOW_S} s), bound {b_ms:.4f} ms "
                    f"({b_by}); card {card}")
+    phase("6", f"inv_mod_batch chain floor (n=1, one block, one safegcd "
+               f"inversion): kernel {chain_ms:.4f} ms on the device "
+               f"(torch.profiler, mean of 20 calls); card {card}")
 
     def entry(name, key, source, replaces, **extra):
         launches = {"add": launches_add[name], "mul": launches_mul[name]}
@@ -557,7 +585,12 @@ def main() -> int:
               ptxas={k: v for k, v in ptxas.items() if "hash160" in k}),
         entry("inv_mod_batch", "inv_mod_batch",
               "ecloop_tpu_torch/csrc/inv_batch.cu",
-              "ecloop_tpu/pallas_kernels.py:78", ptxas=ptxas.get("inv_batch")),
+              "ecloop_tpu/pallas_kernels.py:78", chain_floor_ms=chain_ms,
+              ms_32768=t["inv_mod_batch_mul"][0],
+              call_ms_32768=call_ms["inv_mod_batch_mul"],
+              plain_ms_32768=t["inv_mod_batch_mul"][1],
+              bound_ms_32768=bounds["inv_mod_batch_mul"][0],
+              ptxas={k: v for k, v in ptxas.items() if "inv_batch" in k}),
         entry("mixed_add", "mixed_add_incomplete",
               "ecloop_tpu_torch/csrc/mixed_add.cu",
               "ecloop_tpu/pallas_kernels.py:211",

@@ -101,8 +101,10 @@ def lib() -> ctypes.CDLL:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         cdll.ecl_hash160.argtypes = [vp, vp, vp, ll, ctypes.c_int, vp]
         cdll.ecl_hash160.restype = ctypes.c_int
-        cdll.ecl_inv_batch.argtypes = [vp, vp, vp, ll, ll, vp]
+        cdll.ecl_inv_batch.argtypes = [vp, vp, ll, vp]
         cdll.ecl_inv_batch.restype = ctypes.c_int
+        cdll.ecl_inv_batch_block.argtypes = []
+        cdll.ecl_inv_batch_block.restype = ctypes.c_int
         cdll.ecl_mixed_add.argtypes = [vp] * 7 + [ll, ctypes.c_int, vp]
         cdll.ecl_mixed_add.restype = ctypes.c_int
         _lib = cdll

@@ -4,18 +4,35 @@
 // _build_inv and inv_mod_batch_pallas).  Contract: out[e] = x[e]^-1 mod p
 // for every element, 0 -> 0, inputs canonical (< p), any batch length n.
 //
-// The Pallas kernel walks its grid in order and carries the prefix
-// scratch from step to step.  CUDA blocks run in no order, so here each
-// thread owns a strided chunk of elements e = t, t + T, t + 2T, ... (T
-// threads in all, so every load and store is coalesced across a warp):
-// prefix products into the scratch buffer, one Fermat chain for the
-// chunk's total, then back-substitution.  Nothing passes between blocks.
+// Bound: the latency of one dependent chain, not bytes or operations.
+// However the batch is cut, some thread must invert one field element, a
+// chain of hundreds of dependent steps (the Fermat chain of _inv_chain:
+// 255 squarings and 15 multiplies; here a safegcd of some 20 batches of
+// divsteps), each needing the one before; the 32 limbs of every element
+// move in a few microseconds and the 3 multiplies per element are a small
+// share of the card's integer rate.  So the least time is that chain's
+// latency, measured at n = 1.
 //
-// Bound: 32-bit integer multiplies.  Each element costs 3 modular
-// multiplies (64 mul.wide.u32 each) and each thread adds one 270-squaring
-// chain; the chunk length trades the chain's share of the work against
-// the number of threads in flight.  Memory traffic is the 16 input and 16
-// output limbs plus 8 prefix words written and read once per element.
+// What the design does about it:
+// - The block's one inversion is a variable-time safegcd (fe_inv_var:
+//   Bernstein-Yang divsteps in batches of 30 on 32-bit words), which on
+//   the H100 took less than half the Fermat chain's time (PERF.md).
+// - Every multiply on the way (prefix products, the tree) is the lazy
+//   fe_mul_lazy of field.cuh: products issued as independent rows and
+//   summed afterwards in PTX carry chains, values kept below 2^256 and
+//   reduced fully only before the store.
+// - Three-level Montgomery's trick, with no scratch in device memory: each
+//   thread multiplies CHUNK elements into prefix products held in
+//   registers; a product tree over the block's THREADS chunk products in
+//   shared memory (up-sweep, one inversion per block, down-sweep) gives
+//   each thread the inverse of its chunk product; the thread then
+//   back-substitutes.  Blocks are independent and the ragged edge is
+//   masked (missing and zero elements count as 1, zeros are stored as 0).
+// - A block is one warp holding THREADS * CHUNK = 128 elements, so the main
+//   path's batches (32,768 per `mul` job, 65,568 per `add` step, up to
+//   155,629 per table-build round) launch 256 to 1,216 blocks: every one
+//   of the 132 SMs holds at least one chain, and the chains of an SM's
+//   blocks fall on all four of its warp schedulers.
 //
 // Launches on the given stream, allocates nothing, does not synchronise.
 #include <cuda_runtime.h>
@@ -28,60 +45,123 @@ namespace {
 
 using ecl::fe;
 
-__global__ void __launch_bounds__(128)
-    inv_batch_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
-                     uint32_t* __restrict__ pfx, int64_t n, int64_t nthreads) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nthreads || t >= n) return;
+constexpr int THREADS = 32;                // leaves of the block's tree: one warp
+constexpr int CHUNK = 4;                   // elements a thread chains
+constexpr int PER_BLOCK = THREADS * CHUNK;
 
-  fe acc;
-  ecl::fe_set(acc, 1);
-  int64_t last = t;
-  for (int64_t e = t; e < n; e += nthreads) {
-    fe a;
-    ecl::fe_load16(a, x, n, e);
-    if (ecl::fe_is_zero(a)) ecl::fe_set(a, 1);
-    ecl::fe_mul(acc, acc, a);
+// the product tree, word-major: node k (1 = root, THREADS + t = thread t's
+// leaf) is words tree[0..7][k]
+__device__ __forceinline__ void tree_load(fe& a, const uint32_t (*tree)[2 * THREADS], int k) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) pfx[i * n + e] = acc.v[i];
-    last = e;
+  for (int i = 0; i < 8; ++i) a.v[i] = tree[i][k];
+}
+
+__device__ __forceinline__ void tree_store(uint32_t (*tree)[2 * THREADS], int k, const fe& a) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) tree[i][k] = a.v[i];
+}
+
+__global__ void __launch_bounds__(THREADS)
+    inv_batch_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out, int64_t n) {
+  __shared__ uint32_t tree[8][2 * THREADS];
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x * PER_BLOCK + t;
+
+  // chunk elements e = base + c * THREADS (coalesced across the warp);
+  // pre[c] = x[0] * ... * x[c], with missing and zero elements as 1
+  fe xs[CHUNK], pre[CHUNK];
+  bool zero[CHUNK];
+#pragma unroll
+  for (int c = 0; c < CHUNK; ++c) {
+    const int64_t e = base + (int64_t)c * THREADS;
+    ecl::fe_set(xs[c], 1);
+    zero[c] = false;
+    if (e < n) {
+      fe a;
+      ecl::fe_load16(a, x, n, e);
+      zero[c] = ecl::fe_is_zero(a);
+      if (!zero[c]) xs[c] = a;
+    }
+    if (c == 0)
+      pre[0] = xs[0];
+    else
+      ecl::fe_mul_lazy(pre[c], pre[c - 1], xs[c]);
   }
 
-  fe inv;
-  ecl::fe_inv(inv, acc);
-
-  for (int64_t e = last;; e -= nthreads) {
-    fe a;
-    ecl::fe_load16(a, x, n, e);
-    const bool zero = ecl::fe_is_zero(a);
-    fe o;
-    if (e == t) {
-      o = inv;
-    } else {
-      fe prev;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) prev.v[i] = pfx[i * n + e - nthreads];
-      ecl::fe_mul(o, inv, prev);
-      if (!zero) ecl::fe_mul(inv, inv, a);
+  // up-sweep: node k = product of nodes 2k and 2k + 1
+  tree_store(tree, THREADS + t, pre[CHUNK - 1]);
+  __syncthreads();
+#pragma unroll 1
+  for (int s = THREADS / 2; s >= 1; s >>= 1) {
+    if (t < s) {
+      fe l, r;
+      tree_load(l, tree, 2 * (s + t));
+      tree_load(r, tree, 2 * (s + t) + 1);
+      ecl::fe_mul_lazy(l, l, r);
+      tree_store(tree, s + t, l);
     }
-    if (zero) ecl::fe_set(o, 0);
-    ecl::fe_store16(out, n, e, o);
-    if (e == t) break;
+    __syncthreads();
+  }
+  // the block's one inversion
+  if (t == 0) {
+    fe root;
+    tree_load(root, tree, 1);
+    ecl::fe_canon(root, root);
+    ecl::fe_inv_var(root, root);
+    tree_store(tree, 1, root);
+  }
+  __syncthreads();
+  // down-sweep: node k holds the inverse of its product; its children get
+  // inv(k) * (the other child's product)
+#pragma unroll 1
+  for (int s = 1; s < THREADS; s <<= 1) {
+    if (t < s) {
+      const int k = s + t;
+      fe inv, l, r;
+      tree_load(inv, tree, k);
+      tree_load(l, tree, 2 * k);
+      tree_load(r, tree, 2 * k + 1);
+      ecl::fe_mul_lazy(r, inv, r);
+      ecl::fe_mul_lazy(l, inv, l);
+      tree_store(tree, 2 * k, r);
+      tree_store(tree, 2 * k + 1, l);
+    }
+    __syncthreads();
+  }
+
+  // back-substitution: inv = (x[0] * ... * x[c])^-1 at step c
+  fe inv;
+  tree_load(inv, tree, THREADS + t);
+#pragma unroll
+  for (int c = CHUNK - 1; c >= 0; --c) {
+    const int64_t e = base + (int64_t)c * THREADS;
+    fe o;
+    if (c > 0) {
+      ecl::fe_mul_lazy(o, inv, pre[c - 1]);
+      ecl::fe_mul_lazy(inv, inv, xs[c]);
+    } else {
+      o = inv;
+    }
+    if (e < n) {
+      if (zero[c])
+        ecl::fe_set(o, 0);
+      else
+        ecl::fe_canon(o, o);
+      ecl::fe_store16(out, n, e, o);
+    }
   }
 }
 
 }  // namespace
 
-// x, out: (16, n) int64 limbs; pfx: (8, n) 32-bit scratch.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int ecl_inv_batch(const void* x, void* out, void* pfx, long long n,
-                             long long chunk, void* stream) {
+// x, out: (16, n) int64 limbs.  Returns cudaGetLastError() after the launch.
+extern "C" int ecl_inv_batch(const void* x, void* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  if (chunk < 1) chunk = 1;
-  const long long nthreads = (n + chunk - 1) / chunk;
-  const int threads = 128;
-  const long long blocks = (nthreads + threads - 1) / threads;
-  inv_batch_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)x, (int64_t*)out, (uint32_t*)pfx, (int64_t)n, (int64_t)nthreads);
+  const long long blocks = (n + PER_BLOCK - 1) / PER_BLOCK;
+  inv_batch_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)x, (int64_t*)out, (int64_t)n);
   return (int)cudaGetLastError();
 }
+
+// Elements per block, for tests that place zeros on block edges.
+extern "C" int ecl_inv_batch_block(void) { return PER_BLOCK; }

@@ -220,18 +220,23 @@ def inv_mod(a):
     return mul_mod(sqrn(t, 2), x1)
 
 
-def inv_mod_batch(x: torch.Tensor, lanes: int = 4096) -> torch.Tensor:
+def inv_mod_batch(x: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
     """Montgomery batch inversion, the plain version of the K2 kernel.
 
     x: (16, ...) canonical limbs.  The batch is laid out as (s, w): w
     independent chains of s prefix products, one Fermat inversion of the
     w chain totals, then back-substitution.  Any batch length works (the
-    tail is padded with ones).  Zero inputs map to zero outputs.
+    tail is padded with ones).  Zero inputs map to zero outputs.  The
+    default w is 4096 on a GPU, where this version is bound by its
+    launches (about 270 + 2s), and 256 on the CPU, where it is bound by
+    its work (about 270w + 3b products).
     """
     flat = x.reshape(NLIMBS, -1)
     b = flat.shape[1]
     if b == 0:
         return x.clone()
+    if lanes is None:
+        lanes = 4096 if flat.is_cuda else 256
     zero = is_zero(flat)
     safe = torch.where(zero, const(1, flat), flat)
     w = min(lanes, b)

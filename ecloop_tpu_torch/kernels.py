@@ -20,9 +20,6 @@ from . import _build, ecc, fel, hash160
 
 NLIMBS = 16
 LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0}
-# elements one K2 thread chains: the Fermat chain per thread against the
-# number of threads in flight (chosen, not tuned)
-INV_CHUNK = 16
 
 
 def reset_launches() -> None:
@@ -95,13 +92,18 @@ def inv_mod_batch(x: torch.Tensor) -> torch.Tensor:
     n = x[0].numel()
     out = torch.empty_like(x)
     if n:
-        pfx = torch.empty((8, n), dtype=torch.int32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _launch("ecl_inv_batch", x.data_ptr(), out.data_ptr(),
-                    pfx.data_ptr(), n, INV_CHUNK, stream)
+            _launch("ecl_inv_batch", x.data_ptr(), out.data_ptr(), n,
+                    stream)
         LAUNCHES["inv_mod_batch"] += 1
     return out
+
+
+def inv_block_elements() -> int:
+    """Elements per K2 block (the geometry of csrc/inv_batch.cu), for
+    tests that put zeros on a block edge; builds the kernels."""
+    return int(_build.lib().ecl_inv_batch_block())
 
 
 def proj_add_affine(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,

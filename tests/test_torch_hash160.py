@@ -2,6 +2,8 @@
 wrappers on CPU tensors, against the JAX package's hash160 rows pipeline
 and the golden model.  Bit-exact (tolerance 0)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+JAX_LANES = 64     # the JAX side runs at one width, so it compiles once
+
+
+@functools.cache
 def _jax_hash(is33):
     f = jhash.addr33_hash_rows if is33 else jhash.addr65_hash_rows
 
@@ -31,6 +37,16 @@ def _jax_hash(is33):
         return jnp.stack(f(jfel.from_last(x), jfel.from_last(y)))
 
     return jax.jit(run)
+
+
+def _jax_rows(is33, xl, yl):
+    """The JAX hash rows of (n, 16) limbs, n <= JAX_LANES, padded to
+    JAX_LANES lanes with copies of the first point."""
+    n = len(xl)
+    pad = [xl[:1].repeat(JAX_LANES - n, 0), yl[:1].repeat(JAX_LANES - n, 0)]
+    out = _jax_hash(is33)(jnp.asarray(np.concatenate([xl, pad[0]])),
+                          jnp.asarray(np.concatenate([yl, pad[1]])))
+    return np.asarray(out)[:, :n]
 
 
 def _hex_rows(words: np.ndarray) -> list[str]:
@@ -55,7 +71,7 @@ def _check(pts):
         got = plain(x, y)
         assert got.shape == (5, len(pts)) and got.dtype == torch.int64
         assert torch.equal(wrapper(x, y), got)
-        want_jax = np.asarray(_jax_hash(is33)(jnp.asarray(xl), jnp.asarray(yl)))
+        want_jax = _jax_rows(is33, xl, yl)
         np.testing.assert_array_equal(got.numpy(), want_jax.astype(np.int64))
         assert _hex_rows(got.numpy()) == [gold(p).hex() for p in pts]
 

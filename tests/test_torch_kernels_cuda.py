@@ -42,15 +42,31 @@ def test_hash160_kernel_matches_plain(dev, n):
     assert kernels.LAUNCHES["hash160"] == before + 2
 
 
-@pytest.mark.parametrize("n", [65568, 1000, 33, 1])
+@pytest.mark.parametrize("n", [65568, 32768, 155629, 1000, 33, 1])
 def test_inv_kernel_matches_plain(dev, n):
+    """The main path's K2 widths (an `add` step, a `mul` job, the widest
+    table-build round) and ragged ones, with zeros first and, where the
+    batch spans several blocks, across a block edge, over one whole block
+    and last."""
     x = _limbs(n, 3, dev)
     x[:, : min(n, 3)] = 0
+    blk = kernels.inv_block_elements()
+    if n > 4 * blk:
+        x[:, blk - 5:blk + 5] = 0
+        x[:, 2 * blk:3 * blk] = 0
+        x[:, -3:] = 0
+    before = kernels.LAUNCHES["inv_mod_batch"]
     got = kernels.inv_mod_batch(x)
+    assert kernels.LAUNCHES["inv_mod_batch"] == before + 1
     assert torch.equal(got, fel.inv_mod_batch(x))
-    v = fel.tensor_to_ints(x[:, -1:])[0]
-    assert fel.tensor_to_ints(got[:, -1:])[0] == (pow(v, fel.P - 2, fel.P)
-                                                 if v else 0)
+    v = fel.tensor_to_ints(x[:, -4:-3] if n > 4 * blk else x[:, -1:])[0]
+    w = fel.tensor_to_ints(got[:, -4:-3] if n > 4 * blk else got[:, -1:])[0]
+    assert w == (pow(v, fel.P - 2, fel.P) if v else 0)
+
+
+def test_inv_kernel_all_zero(dev):
+    x = torch.zeros((16, 1000), dtype=torch.int64, device=dev)
+    assert torch.equal(kernels.inv_mod_batch(x), x)
 
 
 def test_kernel_rejects_non_contiguous(dev):

@@ -3,6 +3,7 @@ body of K3) in both forms, the gtable, and one device step on the same
 inputs must be bit-identical; the engine and the CLI must find planted
 and vector keys in both address forms."""
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ from ecloop_tpu.search import mul as jmul
 from ecloop_tpu.search.common import SearchConfig as JSearchConfig
 from ecloop_tpu_torch import bloom, cli, fel, filters, kernels
 from ecloop_tpu_torch.search import mul
-from ecloop_tpu_torch.search.common import SearchConfig
+from ecloop_tpu_torch.search.common import SearchConfig, derive_h160
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 BW_PRIV = os.path.join(ROOT, "data", "btc-bw-priv")
@@ -51,6 +52,7 @@ def jax_table(tmp_path_factory):
 
 
 def _h160s(keys, compressed=True):
+    """hash160 of a few keys' pubkeys, from the JAX package's golden."""
     out = []
     for k in keys:
         pt = golden.point_mul(k)
@@ -59,17 +61,23 @@ def _h160s(keys, compressed=True):
     return np.stack(out)
 
 
+@functools.cache
 def _window_lanes(n=64, seed=7):
     """Accumulator and table points with the special lanes: 0 infinity,
-    1 P == Q, 2 P == -Q, 3 and 40 skipped, others random multiples with
-    a random z."""
+    1 P == Q, 2 P == -Q, 3 and 40 skipped, others consecutive multiples
+    of G from two random keys, with a random z."""
     rng = np.random.default_rng(seed)
-    ks = [int.from_bytes(rng.bytes(32), "big") % golden.N or 1
-          for _ in range(2 * n)]
+    k0, k1 = (int.from_bytes(rng.bytes(32), "big") % golden.N or 1
+              for _ in range(2))
     zs = [int.from_bytes(rng.bytes(32), "big") % golden.P or 1
           for _ in range(n)]
-    g = [golden.point_mul(k) for k in ks[n:]]
-    q = [golden.point_mul(k) for k in ks[:n]]
+
+    def run(k):                      # k G, (k + 1) G, ...: one add each
+        pts = [golden.point_mul(k)]
+        while len(pts) < n:
+            pts.append(golden.point_add(pts[-1], golden.G))
+        return pts
+    q, g = run(k0), run(k1)
     q[1] = g[1]
     q[2] = golden.point_neg(g[2])
     qx = [0 if i == 0 else q[i][0] * zs[i] % golden.P for i in range(n)]
@@ -224,11 +232,12 @@ def test_cli_mul_on_cpu_finds_the_vector_head(monkeypatch, capsys):
     with open(BW_HASH) as f:
         targets = set(f.read().split())
     want = set()
+    # the port's host oracle, not the device path: its source is pinned
+    # byte for byte to the JAX package's (test_torch_package), and the 64
+    # hits are checked against data/btc-bw-hash
     for ln in lines:
-        pt = golden.point_mul(int(ln, 16))
-        for label, h in (("addr33", golden.addr33(pt)),
-                         ("addr65", golden.addr65(pt))):
-            if h.hex() in targets:
+        for label, is33 in (("addr33", True), ("addr65", False)):
+            if derive_h160(int(ln, 16), is33) in targets:
                 want.add((label, int(ln, 16)))
     assert len(want) == 64
     monkeypatch.setattr(mul, "W", W)          # w=14 is too slow to build here
