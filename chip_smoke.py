@@ -4,19 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (printing ptxas's register and spill
-report), holds each against its plain torch version on the card, drives
-the two main paths through the CLI's own code: `add` on the reference's
-9-key vector (plus -endo and a bloom filter) and `mul` on the 1080-key
-vector (plus 1,048,576 keys for its rate), with the w=14 table built on
-the card; then times the kernels against their plain versions and their
-least possible time.  Each phase prints one line; any failure raises.
+report and K1's SASS instruction mix), holds each against its plain
+torch version on the card, drives the main paths through the CLI's own
+code: `add` on the reference's 9-key vector (plus -endo, and a bloom
+filter made by `blf-gen` and queried by `blf-check`), `rnd` over the
+same range in one pass and seeded over 2^20-key sub-ranges, `add -c`
+resumed from a checkpoint, and `mul` on the 1080-key vector (plus
+1,048,576 keys for its rate), with the w=14 table built on the card;
+then times the kernels against their plain versions and their least
+possible time.  Each phase prints one line; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA
 device it exits with 2 and prints no result.
 """
 
+import collections
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -35,20 +42,171 @@ MUL_N = 32768            # keys per `mul` job: K3, K2 and K1 run at this width
 GTABLE_N = 155629        # K2 batch of the w=14 table build's widest round
 RATE_KEYS = 1 << 20      # keys of the `mul` rate run
 TIME_WINDOW_S = 1.0
+RND_SEED = "3"           # phase f: its 8 draws of 2^20-key sub-ranges (blocks
+RND_ITERS = 8            # 5 3 12 0 13 4 0 7) hold 7 of the nine keys
+RESUME_KEY = 0x800000    # phase g: the checkpoint's cursor is this key's offset
 # least-time model (bound_ms): the larger of bytes over the memory rate and
-# 32-bit integer operations over the card's instruction rate.  HBM3 3.35 TB/s;
-# one warp instruction per clock per SM quarter = 128 32-bit lane ops per
-# clock per SM, the rate of the published 67 TFLOP/s fp32 (an FMA counts 2).
+# 32-bit integer operations over the card's integer rate.  HBM3 3.35 TB/s.
+# The CUDA C++ Programming Guide's arithmetic-instruction throughput table
+# gives compute capability 9.0 64 results per clock per SM for 32-bit
+# integer add, logical operations, shifts and multiply-add, so the rate is
+# 64 x the SM count x the maximum SM clock, both read on the card
+# (int_rate()).  The 128 per clock per SM of the fp32 FMA rate is not one
+# that K1's logic ops, rotates and byte permutes can reach; its adds can
+# issue on the FMA pipe too (IMAD.IADD, 64 per clock per SM beside the
+# ALU pipe's), so K1's operations count at this rate as the larger of its
+# ALU-only operations and half of all of them (hash_ops()).
 MEM_BPS = 3.35e12
-INT_OPS = 67e12 / 2
+INT_LANE_OPS_PER_CLK = 64
 # operation counts read off csrc/: a modular multiply is 64 32x32->64-bit
 # multiplies plus about 10 in the fold, a multiply by a small constant
-# 8 + 10; K1 counts its SHA-256 and RIPEMD-160 rounds at one instruction
-# per 3-input add, logic op or funnel shift
+# 8 + 10; K1's are counted by running its function (HashOpCount)
 FE_MUL_OPS = 74
 FE_SMALL_OPS = 18
-HASH_OPS = {True: 2280, False: 3600}     # per key: addr33, addr65
 HASH_LIMBS = {True: 16 + 1 + 5, False: 32 + 5}   # read (x, y's parity) + written
+M32 = 0xFFFFFFFF
+SHA_K = (
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
+    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
+    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
+    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
+    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
+    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2)
+SHA_IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F,
+          0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+
+
+class HashOpCount:
+    """K1's function (csrc/hash160.cu) on one key in plain Python, counting
+    the 32-bit operations it needs.  A word is (value, depends on the key);
+    work on constants alone is folded away.  A sum of n key-dependent terms
+    and one folded constant costs ceil((n - 1) / 2) 3-input adds, and a
+    multiply-add one operation: both issue on the ALU or the FMA pipe
+    (`add`).  A 3-input logic op, a rotate or shift, a funnel shift, a
+    rotate with an add (LEA.HI) and a byte permute cost one operation
+    each, on the ALU pipe only (`alu`)."""
+
+    def __init__(self):
+        self.alu = self.add = 0
+
+    def sum(self, *xs):
+        n_var = sum(v for _, v in xs)
+        if n_var:
+            self.add += (n_var + (sum(w for w, v in xs if not v) & M32 != 0)) // 2
+        return sum(w for w, _ in xs) & M32, n_var > 0
+
+    def mad(self, a, m: int, b):
+        """a * m + b: one IMAD (or LEA)."""
+        self.add += a[1] or b[1]
+        return (a[0] * m + b[0]) & M32, a[1] or b[1]
+
+    def op(self, f, *xs):
+        """One ALU-pipe operation f of up to three words."""
+        var = any(v for _, v in xs)
+        self.alu += var
+        return f(*(w for w, _ in xs)) & M32, var
+
+    def rotr(self, x, n):
+        return self.op(lambda a: a >> n | a << (32 - n), x)
+
+    def funnel(self, hi, lo, n):
+        """(hi:lo) >> n, the low word."""
+        return self.op(lambda h, l: (h << 32 | l) >> n, hi, lo)
+
+    def bswap(self, x):
+        return self.op(lambda a: int.from_bytes(a.to_bytes(4, "big"),
+                                                "little"), x)
+
+    def sha256(self, st, w):
+        xor3 = lambda a, b, c: a ^ b ^ c
+        a, b, c, d, e, f, g, h = st
+        for i in range(64):
+            if i >= 16:
+                w15, w2 = w[(i - 15) & 15], w[(i - 2) & 15]
+                s0 = self.op(xor3, self.rotr(w15, 7), self.rotr(w15, 18),
+                             self.op(lambda v: v >> 3, w15))
+                s1 = self.op(xor3, self.rotr(w2, 17), self.rotr(w2, 19),
+                             self.op(lambda v: v >> 10, w2))
+                w[i & 15] = self.sum(w[i & 15], s0, w[(i - 7) & 15], s1)
+            t1 = self.sum(h, self.op(xor3, *(self.rotr(e, r) for r in
+                                             (6, 11, 25))),
+                          self.op(lambda x, y, z: (x & y) ^ (~x & z), e, f, g),
+                          (SHA_K[i], False), w[i & 15])
+            h, g, f, e = g, f, e, self.sum(d, t1)
+            d, c, b, a = c, b, a, self.sum(
+                t1, self.op(xor3, *(self.rotr(a, r) for r in (2, 13, 22))),
+                self.op(lambda x, y, z: (x & y) ^ (x & z) ^ (y & z), a, b, c))
+        return [self.sum(s, v) for s, v in zip(st, (a, b, c, d, e, f, g, h))]
+
+    def rmd160(self, x):
+        from ecloop_tpu_torch import golden as gd
+        fs = (lambda a, b, c: a ^ b ^ c, lambda a, b, c: (a & b) | (~a & c),
+              lambda a, b, c: (a | ~b) ^ c, lambda a, b, c: (a & c) | (b & ~c),
+              lambda a, b, c: a ^ (b | ~c))
+        iv = [(v, False) for v in gd._RMD_IV]
+        left, right = list(iv), list(iv)
+        for j in range(80):
+            for s, f, r, sh, k in (
+                    (left, fs[j // 16], gd._RMD_R1, gd._RMD_S1, gd._RMD_K1),
+                    (right, fs[4 - j // 16], gd._RMD_R2, gd._RMD_S2,
+                     gd._RMD_K2)):
+                a, b, c, d, e = s
+                t = self.sum(a, self.op(f, b, c, d), x[r[j]],
+                             (k[j // 16], False))
+                n = sh[j]       # rotate and add: one LEA.HI
+                t = self.op(lambda u, v: (u << n | u >> (32 - n)) + v, t, e)
+                s[:] = e, t, b, self.rotr(c, 22), d
+        (al, bl, cl, dl, el), (ar, br, cr, dr, er) = left, right
+        return [self.sum(iv[1], cl, dr), self.sum(iv[2], dl, er),
+                self.sum(iv[3], el, ar), self.sum(iv[4], al, br),
+                self.sum(iv[0], bl, cr)]
+
+    def hash160(self, x_limbs, y_limbs, is33: bool) -> list[int]:
+        """The 5 big-endian words K1 writes for the key whose 16-bit limbs
+        (little-endian, as ints) are x_limbs and y_limbs."""
+        def be_words(limbs):
+            v = [(int(l), True) for l in limbs]
+            return [self.mad(v[15 - 2 * i], 1 << 16, v[14 - 2 * i])
+                    for i in range(8)]
+        xw, zero = be_words(x_limbs), (0, False)
+        if is33:
+            pre = self.op(lambda v: v & 1 | 2, (int(y_limbs[0]), True))
+            w = [self.funnel(hi, lo, 8) for hi, lo in zip([pre] + xw, xw)]
+            w += [self.mad(xw[7], 1 << 24, (0x00800000, False))]
+            w += [zero] * 6 + [(264, False)]
+            st = self.sha256([(v, False) for v in SHA_IV], w)
+        else:
+            yw = be_words(y_limbs)
+            w = [self.funnel(hi, lo, 8) for hi, lo in
+                 zip([(4, False)] + xw + yw[:7], xw + yw)]
+            st = self.sha256([(v, False) for v in SHA_IV], w)
+            w = [self.mad(yw[7], 1 << 24, (0x00800000, False))]
+            st = self.sha256(st, w + [zero] * 14 + [(520, False)])
+        m = [self.bswap(v) for v in st] + [(0x80, False)] + [zero] * 5
+        return [self.bswap(v)[0] for v in
+                self.rmd160(m + [(256, False), zero])]
+
+
+def hash_ops(x_limbs, y_limbs, is33: bool) -> tuple[int, int, list[int]]:
+    """(ALU-only operations, either-pipe operations, K1's 5 words) of one
+    key; the count is the same for every key."""
+    c = HashOpCount()
+    words = c.hash160(x_limbs, y_limbs, is33)
+    return c.alu, c.add, words
+
+
+# SASS opcodes (before the first '.') that issue to the integer ALU pipe;
+# IMAD* issues to the FMA pipe, which runs 32-bit multiply-adds at the
+# same 64 per clock per SM beside it
+ALU_OPS = {"LOP3", "SHF", "IADD3", "PRMT", "ISETP", "SEL", "LEA", "MOV",
+           "IMNMX", "VIADD", "VIMNMX", "PLOP3", "IABS", "BMSK", "SGXT", "FLO",
+           "P2R", "R2P", "SHL", "SHR", "LOP"}
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
 def phase(name: str, msg: str) -> None:
@@ -118,10 +276,62 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float:
     return sum(us) / len(us) / 1e3
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time in ms for the work, and what sets it."""
-    t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / INT_OPS * 1e3
+def bound(nbytes: float, ops: float, int_ops: float) -> tuple[float, str]:
+    """The least time in ms for the work, and what sets it, at `int_ops`
+    32-bit integer operations per second."""
+    t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / int_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def smi(query: str) -> str:
+    """One nvidia-smi --query-gpu field of the first card."""
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0].strip()
+
+
+def int_rate() -> tuple[float, int, int]:
+    """(32-bit integer ops/s, SMs, maximum SM clock in MHz) of card 0."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = int(smi("clocks.max.sm").split()[0])
+    return INT_LANE_OPS_PER_CLK * sms * mhz * 1e6, sms, mhz
+
+
+def sass_mix(lib_path: str) -> dict | None:
+    """K1's SASS instructions per form, from cuobjdump -sass on the built
+    library: {form: {"alu": n, "fma": n, "other": n, "top": {op: n}}}.
+    The kernel is straight-line code, one key per thread, so the static
+    count is the count per key.  None where cuobjdump is missing."""
+    from ecloop_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        return None
+    ops, form = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            form = None
+            if "hash160_kernel" in mangled:
+                form = "addr33" if "ILb1E" in mangled else "addr65"
+                ops[form] = collections.Counter()
+        elif form:
+            m = SASS_LINE.search(line)
+            if m:
+                ops[form][m.group(1)] += 1
+    out = {}
+    for form, c in ops.items():
+        alu = sum(n for op, n in c.items() if op.split(".")[0] in ALU_OPS)
+        fma = sum(n for op, n in c.items() if op.startswith("IMAD"))
+        out[form] = {"alu": alu, "fma": fma,
+                     "other": sum(c.values()) - alu - fma,
+                     "top": dict(c.most_common(8))}
+    return out or None
 
 
 def ptxas_report(path: str) -> dict:
@@ -272,16 +482,13 @@ def main() -> int:
     import numpy as np
 
     from ecloop_tpu_torch import _build, cli, ecc, fel, hash160, kernels
-    from ecloop_tpu_torch import bloom, filters, golden
-    from ecloop_tpu_torch.search import common, mul
+    from ecloop_tpu_torch import bloom, checkpoint, filters, golden
+    from ecloop_tpu_torch.search import add, common, mul, rnd
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0].strip()
+    card = smi("name,power.limit")
+    int_ops, sms, sm_mhz = int_rate()
 
     # --- 0: versions, card, build ------------------------------------------
     phase("0", f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -295,6 +502,16 @@ def main() -> int:
     ptxas = ptxas_report(_build.log_path())
     for name, info in sorted(ptxas.items()):
         phase("0", f"ptxas {name}: {info}")
+    sass = sass_mix(path)
+    if sass is None:
+        phase("0", "K1 SASS instruction mix: not available (no cuobjdump)")
+    for form, mix in sorted((sass or {}).items()):
+        phase("0", f"K1 SASS {form} per key: ALU pipe {mix['alu']}, FMA pipe "
+                   f"(IMAD*) {mix['fma']}, other {mix['other']}; most "
+                   f"frequent {mix['top']}")
+    phase("0", f"integer rate {int_ops / 1e12:.4f} T ops/s = "
+               f"{INT_LANE_OPS_PER_CLK} x {sms} SMs x {sm_mhz} MHz (max SM "
+               f"clock)")
 
     rng = np.random.default_rng(SEED)
     errs = {}
@@ -302,7 +519,7 @@ def main() -> int:
     # --- 1: K1 against its plain version --------------------------------------
     x = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
     y = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
-    err = 0
+    err, hops = 0, {}
     for name, k, p in (("addr33", kernels.addr33_hash_rows,
                         hash160.addr33_hash_rows),
                        ("addr65", kernels.addr65_hash_rows,
@@ -314,6 +531,13 @@ def main() -> int:
             raise AssertionError(f"K1 {name} differs from its plain version "
                                  f"(max abs err {e})")
         err = max(err, e)
+        # the bound's operation count, from K1's function run on key 0
+        alu, either, words = hash_ops(x[:, 0].tolist(), y[:, 0].tolist(),
+                                      name == "addr33")
+        if words != got[:, 0].tolist():
+            raise AssertionError(f"HashOpCount {name} computes {words}, "
+                                 f"K1 {got[:, 0].tolist()}")
+        hops[name] = {"alu": alu, "either": either}
     keys = [int(k) for k in rng.integers(1, 1 << 62, size=8)]
     gx, gy = (fel.from_last(a, dev) for a in ecc.points_host(keys))
     for is33, k in ((True, kernels.addr33_hash_rows),
@@ -328,6 +552,10 @@ def main() -> int:
     phase("1", f"K1 hash160 == plain at {HASH_N} keys (addr33, addr65), "
                f"max abs err {err} (tolerance 0: integer math); 8 points "
                f"== host oracle")
+    for name, h in hops.items():
+        phase("1", f"K1 {name} function per key: {h['alu']} ALU-only + "
+                   f"{h['either']} either-pipe operations (HashOpCount, its "
+                   f"hash of key 0 == K1's)")
 
     # --- 2: K2 against its plain version --------------------------------------
     p = fel.P
@@ -417,17 +645,48 @@ def main() -> int:
     phase("4", f"add -r 8000:ffff -endo: c936 found, k_checked "
                f"{run.k_checked:,}")
 
-    # --- 5: bloom mode, -a cu ------------------------------------------------------
+    # --- 5: a bloom filter from blf-gen, blf-check, bloom mode with -a cu -----
     with open(PUZZLES) as f:
-        puzzle = filters.parse_hash_lines(f.read())
+        puzzle_text = f.read()
+    puzzle = filters.parse_hash_lines(puzzle_text)
     extra = rng.integers(0, 1 << 32, size=(1_000_000, 5),
                          dtype=np.uint64).astype(np.uint32)
     hashes = np.concatenate([puzzle, extra])
-    blf = bloom.BloomFilter.for_count(len(hashes))
-    blf.add_many(hashes)
+    raw = extra.astype(">u4").tobytes().hex()
+    blf_text = puzzle_text.rstrip("\n") + "\n" + "\n".join(raw[i:i + 40]
+                                       for i in range(0, len(raw), 40)) + "\n"
+    non_members = rng.integers(0, 1 << 32, size=(64, 5),
+                               dtype=np.uint64).astype(np.uint32)
+    sample = hashes[rng.choice(len(hashes), size=64, replace=False)]
+    query = ["".join(f"{int(w):08x}" for w in h)
+             for h in np.concatenate([sample, non_members])]
     with tempfile.TemporaryDirectory() as tmp:
         blf_path = os.path.join(tmp, "targets.blf")
-        blf.save(blf_path)
+        t0 = time.monotonic()
+        gen_out = io.StringIO()
+        with contextlib.redirect_stdout(gen_out):
+            cli.run_blf_gen(cli.Args(["ecloop", "blf-gen", "-n",
+                                      str(len(hashes)), "-o", blf_path]),
+                            blf_text)
+        blf_gen_s = time.monotonic() - t0
+        gen_out = gen_out.getvalue().strip()
+        m = re.match(r"added ([\d,]+) hashes \(([\d,]+) duplicates\)", gen_out)
+        if not m or sum(int(g.replace(",", "")) for g in m.groups()) != len(
+                hashes):
+            raise AssertionError(f"blf-gen: {gen_out!r}")
+        blf = bloom.BloomFilter.load(blf_path)
+        if not blf.has_many(hashes).all():
+            raise AssertionError("blf-gen: a hash is missing from the filter")
+        chk_out = io.StringIO()
+        with contextlib.redirect_stdout(chk_out):
+            chk_rc = cli.run_blf_check(cli.Args(["ecloop", "blf-check", "-f",
+                                                 blf_path, *query]), [])
+        lines = chk_out.getvalue().splitlines()
+        hits = [ln.split()[0] for ln in lines
+                if ln.endswith(" FOUND") and "NOT FOUND" not in ln]
+        if hits != query[:64] or len(lines) != 128 or chk_rc != 1:
+            raise AssertionError(f"blf-check: {len(hits)} real hits of 128 "
+                                 f"lines, rc {chk_rc}")
         run = cli.run_add(cli.Args(["ecloop", "add", "-f", blf_path,
                                     "-r", "8000:ffffff", "-a", "cu"]))
     got33 = {f.priv for f in run.found if f.label == "addr33"}
@@ -437,9 +696,123 @@ def main() -> int:
         h = np.frombuffer(bytes.fromhex(f.h160), dtype=">u4").astype(np.uint32)
         if not blf.has_many(h[None])[0]:
             raise AssertionError(f"bloom mode reported a non-member: {f}")
-    phase("5", f"bloom mode -a cu: {len(run.found)} found (9 puzzle keys "
-               f"addr33 included, {len(run.found) - 9} filter positives), "
-               f"k_checked {run.k_checked:,}")
+    phase("5", f"blf-gen: {gen_out} in {blf_gen_s:.3f} s (host); blf-check: "
+               f"64 sampled members FOUND, 64 random non-members NOT FOUND, "
+               f"rc 1; bloom mode -a cu: {len(run.found)} found (9 puzzle "
+               f"keys addr33 included, {len(run.found) - 9} filter "
+               f"positives), k_checked {run.k_checked:,}")
+
+    # --- e: rnd, one full pass --------------------------------------------------
+    kernels.reset_launches()
+    run = cli.run_rnd(cli.Args(["ecloop", "rnd", "-f", PUZZLES,
+                                "-r", "8000:ffffff"]))
+    launches_rnd = dict(kernels.LAUNCHES)
+    privs = {f.priv for f in run.found}
+    if run.device.type != "cuda":
+        raise AssertionError(f"rnd ran on {run.device}")
+    if privs != NINE_KEYS or len(run.found) != 9:
+        raise AssertionError(f"rnd found {sorted(map(hex, privs))}")
+    if run.k_checked != 16_777_216:
+        raise AssertionError(f"rnd k_checked {run.k_checked}")
+    if min(launches_rnd["hash160"], launches_rnd["inv_mod_batch"]) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches_rnd}")
+    phase("e", f"rnd -r 8000:ffffff (24-bit window, one pass): 9/9 keys, "
+               f"k_checked {run.k_checked:,} in {run.seconds:.3f} s = "
+               f"{run.k_checked / run.seconds:,.0f} keys/s; launches "
+               f"{launches_rnd}")
+
+    # --- f: seeded rnd over 2^20-key sub-ranges -------------------------------------
+    cfg = common.SearchConfig(range_s=0x8000, range_e=0xFFFFFF)
+    eng = rnd.RndSearch(cfg, filters.load_filter(PUZZLES), dev,
+                        seed=RND_SEED, offs=0, size=20)
+    spans, walls = [], []
+    t_range = [0.0]
+
+    def on_range(lo, hi):
+        torch.cuda.synchronize()
+        t_range[0] = time.monotonic()
+
+    def on_iter(i, lo, hi, got):
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t_range[0])
+        spans.append((lo, hi, {f.priv for f in got}, len(got)))
+
+    found = eng.run(max_iters=RND_ITERS, on_range=on_range, on_iter=on_iter)
+    fresh = rnd.Rng(RND_SEED)
+    want = [rnd.gen_random_range(fresh, 0x8000, 0xFFFFFF, 0, 20)
+            for _ in range(RND_ITERS)]
+    if [sp[:2] for sp in spans] != want:
+        raise AssertionError(f"rnd sub-ranges {spans} differ from a fresh "
+                             f"Rng's {want}")
+    inside = [{k for k in NINE_KEYS if lo <= k <= hi} for lo, hi in want]
+    for (lo, hi, got, n), keys in zip(spans, inside):
+        if got != keys or n != len(keys):
+            raise AssertionError(f"rnd [{lo:#x}, {hi:#x}]: found "
+                                 f"{sorted(map(hex, got))}")
+    claimed = sum(c.job for lo, hi in want for c in common.plan_claims(
+        lo, hi, common.derive_job_size(lo, hi), 1))
+    if eng.engine.k_checked != claimed or not set().union(*inside):
+        raise AssertionError(f"rnd k_checked {eng.engine.k_checked} != "
+                             f"{claimed}, or no key inside the draws")
+    center_s = []
+    for lo, _hi in want:
+        t0 = time.monotonic()
+        add.center_points(cfg, lo)
+        center_s.append(time.monotonic() - t0)
+    base71 = (1 << 70) + int(rng.integers(1, 1 << 62))
+    t0 = time.monotonic()
+    chain71 = add.center_points(cfg, base71)
+    chain71_s = time.monotonic() - t0
+    h = cfg.group_k // 2
+    t0 = time.monotonic()
+    per71 = ecc.points_host([(base71 + (m * cfg.group_k + h) * cfg.stride)
+                             % golden.N for m in range(cfg.centers)])
+    per71_s = time.monotonic() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(chain71, per71)):
+        raise AssertionError("center_points differs from the per-center form")
+    rnd_split = {"center_points_s": sum(center_s) / len(center_s),
+                 "search_s": sum(walls) / len(walls),
+                 "center_points_71bit_s": chain71_s,
+                 "per_center_71bit_s": per71_s}
+    phase("f", f"rnd -d 0:20 -seed {RND_SEED}, {RND_ITERS} sub-ranges == a "
+               f"fresh Rng's (blocks {[lo >> 20 for lo, _ in want]}): found "
+               f"{sorted(map(hex, {f.priv for f in found}))} ({len(found)} "
+               f"finds) == the nine keys inside them, k_checked "
+               f"{claimed:,} == their claims; per sub-range (host clock, "
+               f"synchronized): center_points {rnd_split['center_points_s']:.4f}"
+               f" s, search {rnd_split['search_s']:.4f} s; at a 71-bit base "
+               f"center_points {chain71_s:.4f} s, per-center form "
+               f"{per71_s:.4f} s; card {card}")
+
+    # --- g: add -c, resumed from a checkpoint ---------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.json")
+        key = checkpoint.config_key_for("add", cfg, PUZZLES)
+        checkpoint.Checkpoint(state, key).save(
+            cursor=RESUME_KEY - cfg.range_s, force=True)
+        out = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(out):
+            run = cli.run_add(cli.Args(["ecloop", "add", "-f", PUZZLES,
+                                        "-r", "8000:ffffff", "-c", state]))
+        launches_resume = dict(kernels.LAUNCHES)
+        with open(state) as f:
+            saved = json.load(f)
+    resume_line = f"resuming from checkpoint: offset {RESUME_KEY - 0x8000:,} keys"
+    want = {k for k in NINE_KEYS if k >= RESUME_KEY}
+    if resume_line not in out.getvalue():
+        raise AssertionError(f"add -c printed {out.getvalue()!r}")
+    if {f.priv for f in run.found} != want or len(run.found) != len(want):
+        raise AssertionError(f"add -c found {run.found}")
+    if run.k_checked != 16_777_216 or saved["k_found"] != len(want):
+        raise AssertionError(f"add -c k_checked {run.k_checked}, saved {saved}")
+    if min(launches_resume["hash160"], launches_resume["inv_mod_batch"]) < 1:
+        raise AssertionError(f"a kernel of the path never ran: "
+                             f"{launches_resume}")
+    phase("g", f"add -r 8000:ffffff -c from key {RESUME_KEY:#x}: "
+               f"'{resume_line}', found {sorted(map(hex, want))}, k_checked "
+               f"{run.k_checked:,}, saved cursor {saved['cursor']:,}, in "
+               f"{run.seconds:.3f} s; launches {launches_resume}")
 
     # --- b: the w=14 table, built on the card ---------------------------------------
     torch.cuda.synchronize()
@@ -540,19 +913,27 @@ def main() -> int:
         # inversion per call, counted as the Fermat chain's 255 squarings
         # and 15 multiplies, however a kernel cuts the batch; 16 limbs in
         # and 16 out per element
-        return bound(n * 32 * limb, (3 * n + 270) * FE_MUL_OPS)
+        return bound(n * 32 * limb, (3 * n + 270) * FE_MUL_OPS, int_ops)
+
+    def hash_bound(form):
+        # ALU-only operations at 64 per clock per SM, all at 128 (the adds
+        # may issue on the FMA pipe), priced at the 64 of int_ops
+        h = hops[form]
+        return bound(HASH_N * HASH_LIMBS[form == "addr33"] * limb,
+                     HASH_N * max(h["alu"], (h["alu"] + h["either"]) / 2),
+                     int_ops)
 
     bounds = {
-        "hash160": bound(HASH_N * HASH_LIMBS[True] * limb,
-                         HASH_N * HASH_OPS[True]),
-        "hash160_addr65": bound(HASH_N * HASH_LIMBS[False] * limb,
-                                HASH_N * HASH_OPS[False]),
+        "hash160": hash_bound("addr33"),
+        "hash160_addr65": hash_bound("addr65"),
         "inv_mod_batch": inv_bound(INV_N),
         "inv_mod_batch_mul": inv_bound(MUL_N),
         "mixed_add_incomplete": bound(MUL_N * (128 * limb + 1),
-                                      active * (12 * FE_MUL_OPS + FE_SMALL_OPS)),
+                                      active * (12 * FE_MUL_OPS + FE_SMALL_OPS),
+                                      int_ops),
         "mixed_add_complete": bound(MUL_N * (128 * limb + 1),
-                                    active * (12 * FE_MUL_OPS + FE_SMALL_OPS)),
+                                    active * (12 * FE_MUL_OPS + FE_SMALL_OPS),
+                                    int_ops),
     }
     for name, (k_ms, p_ms) in t.items():
         n = {"inv": INV_N, "mix": MUL_N}.get(name[:3], HASH_N)
@@ -562,13 +943,31 @@ def main() -> int:
                    f"(torch.profiler, mean of 20 calls), {call_ms[name]:.4f} ms "
                    f"per wrapper call, plain {p_ms:.4f} ms (CUDA events, "
                    f"windows >= {TIME_WINDOW_S} s), bound {b_ms:.4f} ms "
-                   f"({b_by}); card {card}")
+                   f"({b_by}), share {b_ms / k_ms:.1%}; card {card}")
+        if b_ms > k_ms:
+            raise AssertionError(f"{name} runs in {k_ms:.4f} ms, under its "
+                                 f"least time {b_ms:.4f} ms: the bound's "
+                                 f"model is wrong")
+    # K1 against its own SASS (evidence, not the bound: it follows the
+    # compiler's choice of pipe): ALU-pipe ops at 64 and all lane ops at
+    # 128 per clock per SM (the ALU and FMA pipes issue side by side)
+    sass_bound = {}
+    for form, key in (("addr33", "hash160"), ("addr65", "hash160_addr65")):
+        if sass and form in sass:
+            mix = sass[form]
+            per_clk = max(mix["alu"] / 64, (mix["alu"] + mix["fma"]) / 128)
+            sass_bound[form] = HASH_N * per_clk / (sms * sm_mhz * 1e6) * 1e3
+            phase("6", f"{key}: SASS dual-pipe bound {sass_bound[form]:.4f} ms "
+                       f"({mix['alu']} ALU + {mix['fma']} FMA-pipe ops per "
+                       f"key), share {sass_bound[form] / t[key][0]:.1%}")
     phase("6", f"inv_mod_batch chain floor (n=1, one block, one safegcd "
                f"inversion): kernel {chain_ms:.4f} ms on the device "
                f"(torch.profiler, mean of 20 calls); card {card}")
 
     def entry(name, key, source, replaces, **extra):
-        launches = {"add": launches_add[name], "mul": launches_mul[name]}
+        launches = {"add": launches_add[name], "mul": launches_mul[name],
+                    "rnd": launches_rnd[name],
+                    "add_resume": launches_resume[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": errs[name],
@@ -582,6 +981,7 @@ def main() -> int:
               ms_addr65=t["hash160_addr65"][0],
               plain_ms_addr65=t["hash160_addr65"][1],
               bound_ms_addr65=bounds["hash160_addr65"][0],
+              ops_per_key=hops, sass=sass, sass_bound_ms=sass_bound,
               ptxas={k: v for k, v in ptxas.items() if "hash160" in k}),
         entry("inv_mod_batch", "inv_mod_batch",
               "ecloop_tpu_torch/csrc/inv_batch.cu",
@@ -598,8 +998,10 @@ def main() -> int:
               plain_ms_complete=t["mixed_add_complete"][1],
               bound_ms_complete=bounds["mixed_add_complete"][0],
               ptxas={k: v for k, v in ptxas.items() if "mixed_add" in k}),
-    ], "card": card, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
-        "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split}
+    ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
+        "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
+        "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,
+        "rnd_split": rnd_split}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

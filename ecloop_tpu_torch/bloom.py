@@ -27,6 +27,7 @@ from . import native
 BLF_MAGIC = 0x45434246
 BLF_VERSION = 1
 SHIFTS = (24, 28, 36, 40)
+ADD_CHUNK = 1 << 14          # hashes per batch of BloomFilter.add_new
 M32 = 0xFFFFFFFF
 
 
@@ -83,6 +84,34 @@ class BloomFilter:
         idx = probe_indices_host(hashes).reshape(-1) % np.uint64(self.nbits)
         np.bitwise_or.at(self.bits, (idx >> np.uint64(6)).astype(np.int64),
                          np.uint64(1) << (idx & np.uint64(63)))
+
+    def add_new(self, hashes: np.ndarray) -> int:
+        """Add (N, 5) hashes in order, skipping each one the filter holds
+        when its turn comes; returns how many were added.  The bits and
+        the count equal those of testing and adding one hash at a time
+        (blf-gen), computed a chunk at a time: within a chunk, a hash
+        that misses some bits of the filter as the chunk found it is
+        held by then exactly when each bit it misses is missed first by
+        an earlier hash of the chunk (an earlier hash that was skipped
+        missed only bits that hashes before it had set)."""
+        added, chunk = 0, ADD_CHUNK
+        for lo in range(0, len(hashes), chunk):
+            idx = probe_indices_host(hashes[lo:lo + chunk]) % np.uint64(
+                self.nbits)
+            word = (idx >> np.uint64(6)).astype(np.int64)
+            bit = np.uint64(1) << (idx & np.uint64(63))
+            row, col = np.nonzero((self.bits[word] & bit) == 0)
+            # missed bits in (bit, row) order: one sort of bit*chunk + row
+            key = np.sort(idx[row, col].astype(np.int64) * chunk + row)
+            b, row = np.divmod(key, chunk)
+            first = np.ones(len(b), dtype=bool)
+            first[1:] = b[1:] != b[:-1]
+            first_row = row[first][np.cumsum(first) - 1]
+            new = np.unique(row[row == first_row])
+            np.bitwise_or.at(self.bits, word[new].reshape(-1),
+                             bit[new].reshape(-1))
+            added += len(new)
+        return added
 
     def has_many(self, hashes: np.ndarray) -> np.ndarray:
         """(..., 5) -> (...,) bool, all-20-probes membership."""

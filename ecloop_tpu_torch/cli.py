@@ -1,11 +1,13 @@
-"""Command-line interface of the port: `python -m ecloop_tpu_torch add|mul`.
+"""Command-line interface of the port: `python -m ecloop_tpu_torch
+add|mul|rnd|blf-gen|blf-check`.
 
-Keeps the reference's flags and output (`-f -o -a -r -d -q -endo -raw`;
-found keys as `label: hash <- priv` on stdout and TSV in the `-o` file;
-the throttled status line on stderr; 'p'/'r' pause on a terminal).
-`-device cuda|cpu` picks the device, `cuda` by default; without a GPU
-that is an error, never a quiet run on the CPU.  The other commands of
-the JAX package are not ported yet.
+Keeps the reference's flags and output (`-f -o -a -r -d -q -endo -raw
+-seed -c -n`; found keys as `label: hash <- priv` on stdout and TSV in
+the `-o` file; the throttled status line on stderr; 'p'/'r' pause on a
+terminal).  `-device cuda|cpu` picks the device of the searches, `cuda`
+by default; without a GPU that is an error, never a quiet run on the
+CPU.  `blf-gen` and `blf-check` run on the host.  `bench`,
+`bench-gtable` and `mult-verify` are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +35,11 @@ Usage: {name} <cmd> -f <file> [options]
 
   add             - walk a contiguous key range by batched point addition
   mul             - multiply private keys read from stdin (windowed gtable)
+  rnd             - repeatedly search random bit-window slices of a range
+  blf-gen         - build/extend a .blf bloom filter from hash160 lines on stdin
+                    (-n <count> -o <file.blf>)
+  blf-check       - query a .blf filter (-f) for the hash160 values given
+                    as arguments or on stdin
 
 Options:
   -f <file>       - targets: hex hash160 list, or a .blf bloom filter
@@ -41,16 +48,17 @@ Options:
   -r <start:end>  - hex key range to cover, e.g. 8000:ffff (default: whole curve)
   -d <offs:size>  - which bit window the search enumerates, e.g. 128:32
   -q              - suppress stdout hits (requires -o)
-  -endo           - add: also test the 5 GLV-endomorphism images of every point (6x)
+  -endo           - add, rnd: also test the 5 GLV-endomorphism images of every point (6x)
   -raw            - mul: private key = SHA-256 of each input line
+  -seed <str>     - rnd: seed the draws of the sub-ranges (repeatable runs)
+  -c <file>       - add, rnd: cursor checkpoint; resume an interrupted run
   -device <dev>   - cuda (default) or cpu
 
 Batch geometry: ECLOOP_CENTERS, ECLOOP_GROUP_K, ECLOOP_STEPS_PER_CALL (add),
 ECLOOP_MUL_BATCH (mul).
 """
 
-NOT_PORTED = ("rnd", "blf-gen", "blf-check", "bench", "bench-gtable",
-              "mult-verify")
+NOT_PORTED = ("bench", "bench-gtable", "mult-verify")
 
 
 # --- arguments (reference args_bool / arg_str) ----------------------------------
@@ -67,6 +75,15 @@ class Args:
             if a == name:
                 return self.argv[i + 1]
         return None
+
+    def get_uint(self, name: str, default: int) -> int:
+        v = self.get_str(name)
+        if v is None:
+            return default
+        try:
+            return int(v)
+        except ValueError:
+            return default
 
 
 def _die(msg: str):
@@ -96,8 +113,10 @@ def parse_range(args: Args) -> tuple[int, int]:
     return range_s, range_e
 
 
-def parse_offs_size(args: Args, range_e: int) -> tuple[int, int]:
-    """-d offs:size for add (load_offs_size, main.c:703-746)."""
+def parse_offs_size(args: Args, range_e: int, cmd: str,
+                    rng) -> tuple[int, int]:
+    """-d offs:size (load_offs_size, main.c:703-746); `rnd` without -d
+    draws its offset from `rng`."""
     from .search.common import default_offs_size
 
     raw = args.get_str("-d")
@@ -112,7 +131,8 @@ def parse_offs_size(args: Args, range_e: int) -> tuple[int, int]:
         except ValueError:
             _die("invalid offset:size format, use format: -d 128:32")
     try:
-        return default_offs_size(range_e, offs, size, None, is_rnd=False)
+        return default_offs_size(range_e, offs, size, rng,
+                                 is_rnd=(cmd == "rnd"))
     except ValueError as e:
         _die(str(e))
 
@@ -277,10 +297,14 @@ def select_device(args: Args) -> torch.device:
 
 
 def search_config(args: Args, cmd: str):
-    """Filter, SearchConfig and Status from the command line, with the
-    reference's startup echo."""
+    """Filter, SearchConfig, Status and the -d (offs, size) from the
+    command line, with the reference's startup echo; `rnd` without -d
+    draws its offset from the -seed Rng."""
     from . import filters
     from .search.common import SearchConfig
+    from .search.rnd import Rng
+
+    rng = Rng(args.get_str("-seed"))
 
     path = args.get_str("-f")
     if not path:
@@ -299,10 +323,10 @@ def search_config(args: Args, cmd: str):
     addr65 = "u" in addr
     if not addr33 and not addr65:
         addr33 = True
-    endo = args.get_bool("-endo") and cmd == "add"   # no endo for mul
+    endo = args.get_bool("-endo") and cmd != "mul"   # no endo for mul
 
     range_s, range_e = parse_range(args)
-    offs, _size = parse_offs_size(args, range_e)
+    offs, size = parse_offs_size(args, range_e, cmd, rng)
     cfg = SearchConfig(range_s=range_s, range_e=range_e, stride_offs=offs,
                        addr33=addr33, addr65=addr65, endo=endo)
     cfg.centers = int(os.environ.get("ECLOOP_CENTERS", cfg.centers))
@@ -319,7 +343,24 @@ def search_config(args: Args, cmd: str):
         print(f"range_s: {range_s:064x}")
         print(f"range_e: {range_e:064x}")
     print("-" * 40)
-    return cfg, filt, status
+    return cfg, filt, status, (offs, size)
+
+
+def open_checkpoint(args: Args, cmd: str, cfg, seed: str | None = None):
+    """The -c checkpoint of this search and whether it holds a position
+    to resume from; (None, False) without -c.  A file of another search
+    is an error."""
+    from . import checkpoint
+
+    path = args.get_str("-c")
+    if not path:
+        return None, False
+    key = checkpoint.config_key_for(cmd, cfg, args.get_str("-f"), seed=seed)
+    try:
+        ckpt = checkpoint.Checkpoint(checkpoint.process_local_path(path), key)
+        return ckpt, ckpt.try_resume()
+    except ValueError as e:
+        _die(str(e))
 
 
 @dataclasses.dataclass
@@ -331,12 +372,20 @@ class SearchRun:
 
 
 def run_add(args: Args) -> SearchRun:
-    """The `add` command: search the range, report finds, return them
-    with the claim-based key count."""
+    """The `add` command: search the range (from the -c cursor when it
+    resumes), report finds, return them with the claim-based key count."""
     from .search.add import AddSearch
 
     device = select_device(args)
-    cfg, filt, status = search_config(args, "add")
+    cfg, filt, status, _ = search_config(args, "add")
+    ckpt, resumed = open_checkpoint(args, "add", cfg)
+    start_offset = 0
+    if resumed:
+        start_offset = int(ckpt.cursor or 0)
+        status.k_found = ckpt.k_found
+        if start_offset:
+            print(f"resuming from checkpoint: offset "
+                  f"{_fmt_n(start_offset)} keys")
     eng = AddSearch(cfg, filt, device)
     mult = 6 if cfg.endo else 1
 
@@ -344,6 +393,9 @@ def run_add(args: Args) -> SearchRun:
         # clamp to the claim-based counter: the step-rounded count would
         # overshoot it on a range that is not GROUP-aligned
         status.update(min(done_keys * mult, eng.k_checked) - status.k_checked)
+        if ckpt:
+            ckpt.save(cursor=done_keys, k_checked=status.k_checked,
+                      k_found=status.k_found)
 
     found = []
 
@@ -353,11 +405,135 @@ def run_add(args: Args) -> SearchRun:
 
     with _interactive(status):
         t0 = time.monotonic()
-        eng.run_range(on_found=on_found, on_step=on_step)
+        eng.run_range(on_found=on_found, on_step=on_step,
+                      start_offset=start_offset)
         seconds = time.monotonic() - t0
+        if ckpt:
+            ckpt.save(force=True)
         status.finish()
     return SearchRun(found=found, k_checked=eng.k_checked, seconds=seconds,
                      device=device)
+
+
+def run_rnd(args: Args) -> SearchRun:
+    """The `rnd` command: search random sub-ranges until a draw covers
+    the whole range (forever otherwise), with the range masks before and
+    a `found / checked ~ s` line after each.  With -c, a seeded run
+    resumes at the iteration after the last one saved."""
+    from .search.rnd import RndSearch, format_range_mask
+
+    device = select_device(args)
+    cfg, filt, status, (offs, size) = search_config(args, "rnd")
+    seed = args.get_str("-seed")
+    eng = RndSearch(cfg, filt, device, seed=seed, offs=offs, size=size)
+    print(f"[random mode] offs: {eng.offs} ~ bits: {eng.size}\n")
+
+    ckpt, resumed = open_checkpoint(args, "rnd", cfg, seed)
+    skip_iters = 0
+    if resumed:
+        skip_iters = ckpt.iters
+        status.k_found = ckpt.k_found
+        status.k_checked = ckpt.k_checked
+        if skip_iters:
+            print(f"resuming from checkpoint: iteration {skip_iters}")
+            if seed is None:
+                print("note: unseeded rnd draws fresh ranges; the "
+                      "checkpoint only restores counters", file=sys.stderr)
+
+    def on_range(lo, hi):
+        print(format_range_mask(lo, eng.offs, eng.size, status.use_color))
+        print(format_range_mask(hi, eng.offs, eng.size, status.use_color))
+
+    # the engine counts from 0 in this process; a resumed run adds the
+    # saved count
+    base_checked = status.k_checked
+    last = {"c": status.k_checked, "f": status.k_found,
+            "t": time.monotonic()}
+
+    def on_iter(i, lo, hi, got):
+        status.update(base_checked + eng.engine.k_checked - status.k_checked)
+        now = time.monotonic()
+        dc, df = status.k_checked - last["c"], status.k_found - last["f"]
+        dt = max(now - last["t"], 1e-3)
+        last.update(c=status.k_checked, f=status.k_found, t=now)
+        sys.stderr.write("\033[2K\r")
+        print(f"{_fmt_n(df)} / {_fmt_n(dc)} ~ {dt:.1f}s\n")
+        if ckpt:
+            ckpt.save(iters=i, k_checked=status.k_checked,
+                      k_found=status.k_found, force=True)
+
+    found = []
+
+    def on_found(f):
+        found.append(f)
+        status.write_found(f)
+
+    with _interactive(status):
+        t0 = time.monotonic()
+        eng.run(on_found=on_found, on_iter=on_iter, on_range=on_range,
+                skip_iters=skip_iters)
+        seconds = time.monotonic() - t0
+        status.finish()
+    return SearchRun(found=found, k_checked=status.k_checked,
+                     seconds=seconds, device=device)
+
+
+def run_blf_gen(args: Args, text: str) -> int:
+    """`blf-gen -n <count> -o <file.blf>`: add the hash160 lines of
+    `text` to the filter (a same-size existing file is updated), counting
+    as duplicates the hashes it already holds when their turn comes."""
+    from . import bloom, filters
+
+    n = args.get_uint("-n", 0)
+    if n <= 0:
+        _die("missing filter size (-n <count>)")
+    path = args.get_str("-o")
+    if not path:
+        _die("missing output file (-o <file.blf>)")
+    if not path.endswith(".blf"):
+        _die("output file should have .blf extension")
+    blf = bloom.BloomFilter.for_count(n)
+    if os.path.exists(path):
+        old = bloom.BloomFilter.load(path)
+        if old.size != blf.size:
+            _die("filter size mismatch; delete existing file or use same -n")
+        blf = old
+    hashes = filters.parse_hash_lines(text)
+    added = blf.add_new(hashes)
+    blf.save(path)
+    print(f"added {_fmt_n(added)} hashes ({_fmt_n(len(hashes) - added)} "
+          f"duplicates) ~ size {_fmt_n(blf.size * 8)} bytes")
+    return 0
+
+
+def run_blf_check(args: Args, lines) -> int:
+    """`blf-check -f <file.blf> [hash...]`: one `<hash> FOUND` or `<hash>
+    NOT FOUND` line per hash160 given as an argument or, without any,
+    per line of `lines`; 1 when any is not found."""
+    import numpy as np
+
+    from . import bloom, filters
+
+    path = args.get_str("-f")
+    if not path or not path.endswith(".blf"):
+        _die("missing bloom filter file (-f <file.blf>)")
+    blf = bloom.BloomFilter.load(path)
+    items = [a for a in args.argv[2:] if len(a) == 40 and not a.startswith("-")]
+    if not items:
+        items = [ln.strip() for ln in lines if len(ln.strip()) == 40]
+    names, rows = [], []
+    for hx in items:
+        try:
+            rows.append(filters.hex_to_h160(hx))
+        except ValueError:
+            continue
+        names.append(hx)
+    if not rows:
+        return 0
+    hits = blf.has_many(np.stack(rows))
+    for hx, ok in zip(names, hits):
+        print(f"{hx} {'FOUND' if ok else 'NOT FOUND'}")
+    return 0 if hits.all() else 1
 
 
 def run_mul(args: Args, lines) -> SearchRun:
@@ -368,7 +544,7 @@ def run_mul(args: Args, lines) -> SearchRun:
     from .search import mul
 
     device = select_device(args)
-    cfg, filt, status = search_config(args, "mul")
+    cfg, filt, status, _ = search_config(args, "mul")
     batch = os.environ.get("ECLOOP_MUL_BATCH",
                            "32768" if device.type == "cuda" else "2048")
     if not batch.isdigit() or int(batch) < 32 or int(batch) % 32:
@@ -414,6 +590,13 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "mul":
         run_mul(args, sys.stdin)
         return 0
+    if cmd == "rnd":
+        run_rnd(args)
+        return 0
+    if cmd == "blf-gen":
+        return run_blf_gen(args, sys.stdin.read())
+    if cmd == "blf-check":
+        return run_blf_check(args, sys.stdin)
     if cmd in NOT_PORTED:
         print(f"{cmd}: not yet ported to ecloop_tpu_torch "
               f"(use python -m ecloop_tpu {cmd})", file=sys.stderr)

@@ -85,6 +85,12 @@ def _h160_key(h: np.ndarray) -> int:
     return v
 
 
+def hex_to_h160(hexstr: str) -> np.ndarray:
+    """40 hex chars -> (5,) u32 words; raises ValueError on a bad digit."""
+    return np.array([int(hexstr[i:i + 8], 16) for i in range(0, 40, 8)],
+                    dtype=np.uint32)
+
+
 def parse_hash_lines(text: str) -> np.ndarray:
     """40-hex-char lines -> (N, 5) u32; other lines are skipped."""
     rows = []

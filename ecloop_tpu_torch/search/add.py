@@ -76,10 +76,18 @@ def _cached_table(stride: int, k: int, mk: int):
 
 
 def center_points(cfg: SearchConfig, base: int):
-    """(M, 16) limbs of the M group centers of a span starting at base."""
-    h = cfg.group_k // 2
-    return ecc.points_host([(base + (m * cfg.group_k + h) * cfg.stride) % N
-                            for m in range(cfg.centers)])
+    """(M, 16) limbs of x and of y of the M group centers of a span
+    starting at base: the first center by one point_mul, the others by
+    adding the step K*s*G (a second point_mul), M-1 affine adds in all.
+    A center at infinity maps to (0, 0), as ecc.points_host maps key 0."""
+    first = golden.point_mul(base + cfg.group_k // 2 * cfg.stride)
+    step = golden.point_mul(cfg.group_k * cfg.stride)
+    pts = [first]
+    for _ in range(cfg.centers - 1):
+        pts.append(golden.point_add(pts[-1], step))
+    pts = [(0, 0) if p is None else p for p in pts]
+    return (fel.ints_to_limbs([p[0] for p in pts]),
+            fel.ints_to_limbs([p[1] for p in pts]))
 
 
 def state_from_numpy(cx, cy, tx, ty, dpx, dpy, bits, device):
@@ -181,11 +189,18 @@ class RangeDriver:
                  on_step=None):
         raise NotImplementedError
 
-    def run_range(self, on_found=None, on_step=None) -> list[Found]:
-        """Search [range_s, range_e); k_checked grows by each claim's job,
-        x6 with endo.  on_step(keys_done) reports progress."""
+    def run_range(self, on_found=None, on_step=None, start_offset: int = 0,
+                  range_s: int | None = None,
+                  range_e: int | None = None) -> list[Found]:
+        """Search [range_s, range_e), cfg's bounds unless given (`rnd`'s
+        sub-ranges: one engine serves them all).  k_checked grows by each
+        claim's job, x6 with endo, over the whole range whatever the
+        cursor.  start_offset (the resume cursor) skips the first keys
+        of the span; on_step(keys_done) reports progress in keys from
+        range_s, the skipped ones included."""
         cfg = self.cfg
-        rs, re_ = cfg.range_s, cfg.range_e
+        rs = cfg.range_s if range_s is None else range_s
+        re_ = cfg.range_e if range_e is None else range_e
         job = common.derive_job_size(rs, re_)
         claims = list(common.plan_claims(rs, re_, job, cfg.stride))
         if not claims:
@@ -197,12 +212,17 @@ class RangeDriver:
             windows.append((off, off + c.coverage))
             span_keys = max(span_keys, off + c.coverage)
             self.k_checked += c.job * (6 if cfg.endo else 1)
+        if start_offset >= span_keys:
+            return []
 
         def valid(off):
-            return any(a <= off < b for a, b in windows)
+            return any(a <= off + start_offset < b for a, b in windows)
 
-        return self.run_span(rs, span_keys, hit_offsets_valid=valid,
-                             on_found=on_found, on_step=on_step)
+        return self.run_span(
+            (rs + start_offset * cfg.stride) % N, span_keys - start_offset,
+            hit_offsets_valid=valid, on_found=on_found,
+            on_step=(lambda done: on_step(start_offset + done))
+            if on_step else None)
 
 
 class AddSearch(RangeDriver):

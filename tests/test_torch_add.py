@@ -158,8 +158,9 @@ def test_cli_add_on_cpu(endo, k_checked):
 
 def test_cli_refuses_without_gpu_and_unported_commands(capsys):
     from ecloop_tpu_torch import cli
-    assert cli.main(["ecloop", "rnd", "-f", PUZZLES]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    for cmd in ("bench", "bench-gtable", "mult-verify"):
+        assert cli.main(["ecloop", cmd, "-f", PUZZLES]) != 0
+        assert "not yet ported" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as exc:
             cli.main(["ecloop", "add", "-f", PUZZLES, "-r", "8000:ffff"])
