@@ -12,7 +12,11 @@ same range in one pass and seeded over 2^20-key sub-ranges, `add -c`
 resumed from a checkpoint, and `mul` on the 1080-key vector (plus
 1,048,576 keys for its rate), with the w=14 table built on the card;
 then times the kernels against their plain versions and their least
-possible time.  Each phase prints one line; any failure raises.
+possible time (ecloop_tpu_torch/sol.py's account), and runs `bench`
+(every row within its bound, the K1-K3 rows against the kernels' device
+times), `bench-gtable` at w = 8, 14, 16 and `mult-verify` on 16,000
+scalars (and once more with a corrupted table entry, which must fail).
+Each phase prints one line or more; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA
 device it exits with 2 and prints no result.
@@ -40,165 +44,23 @@ HASH_N = 131072          # keys per K1 call at the default 32 x 4096 geometry
 INV_N = 65568            # K2 batch at that geometry: M*K/2 + M
 MUL_N = 32768            # keys per `mul` job: K3, K2 and K1 run at this width
 GTABLE_N = 155629        # K2 batch of the w=14 table build's widest round
+VERIFY_N = 16000         # mult-verify's scalars: K3 and K2 run at this width
 RATE_KEYS = 1 << 20      # keys of the `mul` rate run
 TIME_WINDOW_S = 1.0
 RND_SEED = "3"           # phase f: its 8 draws of 2^20-key sub-ranges (blocks
 RND_ITERS = 8            # 5 3 12 0 13 4 0 7) hold 7 of the nine keys
 RESUME_KEY = 0x800000    # phase g: the checkpoint's cursor is this key's offset
-# least-time model (bound_ms): the larger of bytes over the memory rate and
-# 32-bit integer operations over the card's integer rate.  HBM3 3.35 TB/s.
-# The CUDA C++ Programming Guide's arithmetic-instruction throughput table
-# gives compute capability 9.0 64 results per clock per SM for 32-bit
-# integer add, logical operations, shifts and multiply-add, so the rate is
-# 64 x the SM count x the maximum SM clock, both read on the card
-# (int_rate()).  The 128 per clock per SM of the fp32 FMA rate is not one
-# that K1's logic ops, rotates and byte permutes can reach; its adds can
-# issue on the FMA pipe too (IMAD.IADD, 64 per clock per SM beside the
-# ALU pipe's), so K1's operations count at this rate as the larger of its
-# ALU-only operations and half of all of them (hash_ops()).
-MEM_BPS = 3.35e12
-INT_LANE_OPS_PER_CLK = 64
-# operation counts read off csrc/: a modular multiply is 64 32x32->64-bit
-# multiplies plus about 10 in the fold, a multiply by a small constant
-# 8 + 10; K1's are counted by running its function (HashOpCount)
-FE_MUL_OPS = 74
-FE_SMALL_OPS = 18
-HASH_LIMBS = {True: 16 + 1 + 5, False: 32 + 5}   # read (x, y's parity) + written
-M32 = 0xFFFFFFFF
-SHA_K = (
-    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
-    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
-    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
-    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
-    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
-    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
-    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
-    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
-    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
-    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
-    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2)
-SHA_IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F,
-          0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
-
-
-class HashOpCount:
-    """K1's function (csrc/hash160.cu) on one key in plain Python, counting
-    the 32-bit operations it needs.  A word is (value, depends on the key);
-    work on constants alone is folded away.  A sum of n key-dependent terms
-    and one folded constant costs ceil((n - 1) / 2) 3-input adds, and a
-    multiply-add one operation: both issue on the ALU or the FMA pipe
-    (`add`).  A 3-input logic op, a rotate or shift, a funnel shift, a
-    rotate with an add (LEA.HI) and a byte permute cost one operation
-    each, on the ALU pipe only (`alu`)."""
-
-    def __init__(self):
-        self.alu = self.add = 0
-
-    def sum(self, *xs):
-        n_var = sum(v for _, v in xs)
-        if n_var:
-            self.add += (n_var + (sum(w for w, v in xs if not v) & M32 != 0)) // 2
-        return sum(w for w, _ in xs) & M32, n_var > 0
-
-    def mad(self, a, m: int, b):
-        """a * m + b: one IMAD (or LEA)."""
-        self.add += a[1] or b[1]
-        return (a[0] * m + b[0]) & M32, a[1] or b[1]
-
-    def op(self, f, *xs):
-        """One ALU-pipe operation f of up to three words."""
-        var = any(v for _, v in xs)
-        self.alu += var
-        return f(*(w for w, _ in xs)) & M32, var
-
-    def rotr(self, x, n):
-        return self.op(lambda a: a >> n | a << (32 - n), x)
-
-    def funnel(self, hi, lo, n):
-        """(hi:lo) >> n, the low word."""
-        return self.op(lambda h, l: (h << 32 | l) >> n, hi, lo)
-
-    def bswap(self, x):
-        return self.op(lambda a: int.from_bytes(a.to_bytes(4, "big"),
-                                                "little"), x)
-
-    def sha256(self, st, w):
-        xor3 = lambda a, b, c: a ^ b ^ c
-        a, b, c, d, e, f, g, h = st
-        for i in range(64):
-            if i >= 16:
-                w15, w2 = w[(i - 15) & 15], w[(i - 2) & 15]
-                s0 = self.op(xor3, self.rotr(w15, 7), self.rotr(w15, 18),
-                             self.op(lambda v: v >> 3, w15))
-                s1 = self.op(xor3, self.rotr(w2, 17), self.rotr(w2, 19),
-                             self.op(lambda v: v >> 10, w2))
-                w[i & 15] = self.sum(w[i & 15], s0, w[(i - 7) & 15], s1)
-            t1 = self.sum(h, self.op(xor3, *(self.rotr(e, r) for r in
-                                             (6, 11, 25))),
-                          self.op(lambda x, y, z: (x & y) ^ (~x & z), e, f, g),
-                          (SHA_K[i], False), w[i & 15])
-            h, g, f, e = g, f, e, self.sum(d, t1)
-            d, c, b, a = c, b, a, self.sum(
-                t1, self.op(xor3, *(self.rotr(a, r) for r in (2, 13, 22))),
-                self.op(lambda x, y, z: (x & y) ^ (x & z) ^ (y & z), a, b, c))
-        return [self.sum(s, v) for s, v in zip(st, (a, b, c, d, e, f, g, h))]
-
-    def rmd160(self, x):
-        from ecloop_tpu_torch import golden as gd
-        fs = (lambda a, b, c: a ^ b ^ c, lambda a, b, c: (a & b) | (~a & c),
-              lambda a, b, c: (a | ~b) ^ c, lambda a, b, c: (a & c) | (b & ~c),
-              lambda a, b, c: a ^ (b | ~c))
-        iv = [(v, False) for v in gd._RMD_IV]
-        left, right = list(iv), list(iv)
-        for j in range(80):
-            for s, f, r, sh, k in (
-                    (left, fs[j // 16], gd._RMD_R1, gd._RMD_S1, gd._RMD_K1),
-                    (right, fs[4 - j // 16], gd._RMD_R2, gd._RMD_S2,
-                     gd._RMD_K2)):
-                a, b, c, d, e = s
-                t = self.sum(a, self.op(f, b, c, d), x[r[j]],
-                             (k[j // 16], False))
-                n = sh[j]       # rotate and add: one LEA.HI
-                t = self.op(lambda u, v: (u << n | u >> (32 - n)) + v, t, e)
-                s[:] = e, t, b, self.rotr(c, 22), d
-        (al, bl, cl, dl, el), (ar, br, cr, dr, er) = left, right
-        return [self.sum(iv[1], cl, dr), self.sum(iv[2], dl, er),
-                self.sum(iv[3], el, ar), self.sum(iv[4], al, br),
-                self.sum(iv[0], bl, cr)]
-
-    def hash160(self, x_limbs, y_limbs, is33: bool) -> list[int]:
-        """The 5 big-endian words K1 writes for the key whose 16-bit limbs
-        (little-endian, as ints) are x_limbs and y_limbs."""
-        def be_words(limbs):
-            v = [(int(l), True) for l in limbs]
-            return [self.mad(v[15 - 2 * i], 1 << 16, v[14 - 2 * i])
-                    for i in range(8)]
-        xw, zero = be_words(x_limbs), (0, False)
-        if is33:
-            pre = self.op(lambda v: v & 1 | 2, (int(y_limbs[0]), True))
-            w = [self.funnel(hi, lo, 8) for hi, lo in zip([pre] + xw, xw)]
-            w += [self.mad(xw[7], 1 << 24, (0x00800000, False))]
-            w += [zero] * 6 + [(264, False)]
-            st = self.sha256([(v, False) for v in SHA_IV], w)
-        else:
-            yw = be_words(y_limbs)
-            w = [self.funnel(hi, lo, 8) for hi, lo in
-                 zip([(4, False)] + xw + yw[:7], xw + yw)]
-            st = self.sha256([(v, False) for v in SHA_IV], w)
-            w = [self.mad(yw[7], 1 << 24, (0x00800000, False))]
-            st = self.sha256(st, w + [zero] * 14 + [(520, False)])
-        m = [self.bswap(v) for v in st] + [(0x80, False)] + [zero] * 5
-        return [self.bswap(v)[0] for v in
-                self.rmd160(m + [(256, False), zero])]
-
-
-def hash_ops(x_limbs, y_limbs, is33: bool) -> tuple[int, int, list[int]]:
-    """(ALU-only operations, either-pipe operations, K1's 5 words) of one
-    key; the count is the same for every key."""
-    c = HashOpCount()
-    words = c.hash160(x_limbs, y_limbs, is33)
-    return c.alu, c.add, words
-
+BENCH_R = 256            # phase h: iterations per bench row (the CLI's 512 cut)
+SWEEP_WS = (8, 14, 16)   # phase i: bench-gtable widths
+CORRUPT_N = 256          # phase j: scalars of the corrupted-table run
+ROW_TOLERANCE = 0.25     # phase h: a K1-K3 row's rate against its device time
+# The least-time model (bound_ms) and every kernel's account live in
+# ecloop_tpu_torch/sol.py, which the bench shares: the larger of bytes
+# over the memory rate and 32-bit integer operations over the card's
+# integer rate (64 per clock per SM x SMs x max SM clock, read on the
+# card).  K1's operations are counted by running its function
+# (sol.HashOpCount): its ALU-only operations, or half of all of them
+# where that is more, since its adds may issue on the FMA pipe too.
 
 # SASS opcodes (before the first '.') that issue to the integer ALU pipe;
 # IMAD* issues to the FMA pipe, which runs 32-bit multiply-adds at the
@@ -211,14 +73,6 @@ SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
-
-
-def random_limbs(rng, n: int):
-    """(16, n) limbs of seeded field elements below p (top limb < 0xFFFF)."""
-    import numpy as np
-    a = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
-    a[15] = rng.integers(0, 0xFFFF, size=n, dtype=np.int64)
-    return a
 
 
 def time_ms(fn) -> float:
@@ -274,29 +128,6 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float:
         raise AssertionError(f"profiler saw {len(us)} launches of {kernel}, "
                              f"expected {calls}")
     return sum(us) / len(us) / 1e3
-
-
-def bound(nbytes: float, ops: float, int_ops: float) -> tuple[float, str]:
-    """The least time in ms for the work, and what sets it, at `int_ops`
-    32-bit integer operations per second."""
-    t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / int_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def smi(query: str) -> str:
-    """One nvidia-smi --query-gpu field of the first card."""
-    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0].strip()
-
-
-def int_rate() -> tuple[float, int, int]:
-    """(32-bit integer ops/s, SMs, maximum SM clock in MHz) of card 0."""
-    import torch
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = int(smi("clocks.max.sm").split()[0])
-    return INT_LANE_OPS_PER_CLK * sms * mhz * 1e6, sms, mhz
 
 
 def sass_mix(lib_path: str) -> dict | None:
@@ -366,7 +197,7 @@ def window_lanes(rng, n: int, dev):
     import torch
     from ecloop_tpu_torch import fel, golden
 
-    cols = [random_limbs(rng, n) for _ in range(5)]
+    cols = [fel.random_limbs(rng, n) for _ in range(5)]
     ks = [int(k) for k in rng.integers(1, 1 << 62, size=128)]
     zs = [int(k) for k in rng.integers(1, 1 << 62, size=64)]
     g = [golden.point_mul(k) for k in ks[64:]]
@@ -482,13 +313,15 @@ def main() -> int:
     import numpy as np
 
     from ecloop_tpu_torch import _build, cli, ecc, fel, hash160, kernels
-    from ecloop_tpu_torch import bloom, checkpoint, filters, golden
+    from ecloop_tpu_torch import benchlib, bloom, checkpoint, filters, golden
+    from ecloop_tpu_torch import sol
     from ecloop_tpu_torch.search import add, common, mul, rnd
 
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    card = smi("name,power.limit")
-    int_ops, sms, sm_mhz = int_rate()
+    card = sol.smi("name,power.limit")
+    int_ops, sms, sm_mhz = sol.int_rate()
 
     # --- 0: versions, card, build ------------------------------------------
     phase("0", f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -510,15 +343,15 @@ def main() -> int:
                    f"(IMAD*) {mix['fma']}, other {mix['other']}; most "
                    f"frequent {mix['top']}")
     phase("0", f"integer rate {int_ops / 1e12:.4f} T ops/s = "
-               f"{INT_LANE_OPS_PER_CLK} x {sms} SMs x {sm_mhz} MHz (max SM "
+               f"{sol.INT_LANE_OPS_PER_CLK} x {sms} SMs x {sm_mhz} MHz (max SM "
                f"clock)")
 
     rng = np.random.default_rng(SEED)
     errs = {}
 
     # --- 1: K1 against its plain version --------------------------------------
-    x = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
-    y = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
+    x = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
+    y = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
     err, hops = 0, {}
     for name, k, p in (("addr33", kernels.addr33_hash_rows,
                         hash160.addr33_hash_rows),
@@ -532,8 +365,8 @@ def main() -> int:
                                  f"(max abs err {e})")
         err = max(err, e)
         # the bound's operation count, from K1's function run on key 0
-        alu, either, words = hash_ops(x[:, 0].tolist(), y[:, 0].tolist(),
-                                      name == "addr33")
+        alu, either, words = sol.hash_ops(x[:, 0].tolist(),
+                                          y[:, 0].tolist(), name == "addr33")
         if words != got[:, 0].tolist():
             raise AssertionError(f"HashOpCount {name} computes {words}, "
                                  f"K1 {got[:, 0].tolist()}")
@@ -561,8 +394,8 @@ def main() -> int:
     p = fel.P
     blk = kernels.inv_block_elements()
     err, cases = 0, []
-    for n in (INV_N, MUL_N, GTABLE_N, 1000, 33, 1):
-        a = random_limbs(rng, n)
+    for n in (INV_N, MUL_N, GTABLE_N, HASH_N, VERIFY_N, 1000, 33, 1):
+        a = fel.random_limbs(rng, n)
         for i, v in enumerate((0, 1, p - 1)[:n]):
             a[:, i] = fel.int_to_limbs(v)
         if n > 4 * blk:
@@ -587,31 +420,35 @@ def main() -> int:
                 raise AssertionError(f"K2: inverse of {v:#x} is {w:#x}")
     errs["inv_mod_batch"] = err
     phase("2", f"K2 inv_mod_batch == plain at {INV_N}, {MUL_N}, {GTABLE_N}, "
-               f"1000, 33 and 1 elements (0, 1, p-1 first; zeros at the end, "
+               f"{HASH_N} (bench), {VERIFY_N} (mult-verify), 1000, 33 and 1 "
+               f"elements (0, 1, p-1 first; zeros at the end, "
                f"across a {blk}-element block edge and over one whole block) "
                f"and on 1000 zeros, max abs err {err} (tolerance 0); 64 spot "
                f"checks each == pow(x, p-2, p)")
 
     # --- a: K3 against its plain version ----------------------------------------------
-    (qx, qy, qz), (gx, gy), skip, (hq, hg, hz) = window_lanes(rng, MUL_N, dev)
     err = 0
-    for complete in (False, True):
-        got = kernels.proj_add_affine(qx, qy, qz, gx, gy, skip, complete)
-        want = [fel.select(skip, o, p) for o, p in zip(
-            (qx, qy, qz), ecc.proj_add_affine_rows(qx, qy, qz, gx, gy,
-                                                   complete))]
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            e = int((a - b).abs().max())
-            if not torch.equal(a, b):
-                raise AssertionError(f"K3 complete={complete} differs from "
-                                     f"its plain version (max abs err {e})")
-            err = max(err, e)
-        check_window_add(got, hq, hg, hz, complete)
-        if complete != (fel.tensor_to_ints(got[2][:, 1:2])[0] != 0):
-            raise AssertionError("K3: the P == Q lane")
+    for n in (MUL_N, HASH_N, VERIFY_N):
+        (qx, qy, qz), (gx, gy), skip, (hq, hg, hz) = window_lanes(rng, n, dev)
+        for complete in (False, True):
+            got = kernels.proj_add_affine(qx, qy, qz, gx, gy, skip, complete)
+            want = [fel.select(skip, o, p) for o, p in zip(
+                (qx, qy, qz), ecc.proj_add_affine_rows(qx, qy, qz, gx, gy,
+                                                       complete))]
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                e = int((a - b).abs().max())
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K3 complete={complete} differs "
+                                         f"from its plain version at {n} "
+                                         f"lanes (max abs err {e})")
+                err = max(err, e)
+            check_window_add(got, hq, hg, hz, complete)
+            if complete != (fel.tensor_to_ints(got[2][:, 1:2])[0] != 0):
+                raise AssertionError("K3: the P == Q lane")
     errs["mixed_add"] = err
-    phase("a", f"K3 mixed_add == plain at {MUL_N} lanes, incomplete and "
+    phase("a", f"K3 mixed_add == plain at {MUL_N}, {HASH_N} (bench) and "
+               f"{VERIFY_N} (mult-verify) lanes, incomplete and "
                f"complete (infinity, P == Q, P == -Q and skip lanes), max abs "
                f"err {err} (tolerance 0: integer math); 60 lanes == golden "
                f"P + Q")
@@ -870,12 +707,12 @@ def main() -> int:
                f"{split['busy_share']:.3f}")
 
     # --- 6: timing ----------------------------------------------------------------
-    x = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
-    y = torch.from_numpy(random_limbs(rng, HASH_N)).to(dev)
-    xi = torch.from_numpy(random_limbs(rng, INV_N)).to(dev)
-    xm = torch.from_numpy(random_limbs(rng, MUL_N)).to(dev)
+    x = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
+    y = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
+    xi = torch.from_numpy(fel.random_limbs(rng, INV_N)).to(dev)
+    xm = torch.from_numpy(fel.random_limbs(rng, MUL_N)).to(dev)
     # K3 as the main path runs it: a digit of 0 (skip) is 1 in 2^14
-    q = [torch.from_numpy(random_limbs(rng, MUL_N)).to(dev) for _ in range(5)]
+    q = [torch.from_numpy(fel.random_limbs(rng, MUL_N)).to(dev) for _ in range(5)]
     no_skip = torch.zeros(MUL_N, dtype=torch.bool, device=dev)
     # name: (kernel call, plain call, kernel name in the profiler)
     timed = {
@@ -903,37 +740,20 @@ def main() -> int:
         call_ms[name], plain_ms = paired_ms(kern, plain)
         t[name] = (device_ms(kern, kname), plain_ms)
     # K2's chain floor: one element, so one block and one inversion
-    x1 = torch.from_numpy(random_limbs(rng, 1)).to(dev)
+    x1 = torch.from_numpy(fel.random_limbs(rng, 1)).to(dev)
     chain_ms = device_ms(lambda: kernels.inv_mod_batch(x1), "inv_batch_kernel")
-    limb = 8                                        # bytes of one int64 limb
     active = int((~fel.is_zero(q[2])).sum())
-
-    def inv_bound(n):
-        # Montgomery's trick needs 3 multiplies per element and one
-        # inversion per call, counted as the Fermat chain's 255 squarings
-        # and 15 multiplies, however a kernel cuts the batch; 16 limbs in
-        # and 16 out per element
-        return bound(n * 32 * limb, (3 * n + 270) * FE_MUL_OPS, int_ops)
-
-    def hash_bound(form):
-        # ALU-only operations at 64 per clock per SM, all at 128 (the adds
-        # may issue on the FMA pipe), priced at the 64 of int_ops
-        h = hops[form]
-        return bound(HASH_N * HASH_LIMBS[form == "addr33"] * limb,
-                     HASH_N * max(h["alu"], (h["alu"] + h["either"]) / 2),
-                     int_ops)
-
     bounds = {
-        "hash160": hash_bound("addr33"),
-        "hash160_addr65": hash_bound("addr65"),
-        "inv_mod_batch": inv_bound(INV_N),
-        "inv_mod_batch_mul": inv_bound(MUL_N),
-        "mixed_add_incomplete": bound(MUL_N * (128 * limb + 1),
-                                      active * (12 * FE_MUL_OPS + FE_SMALL_OPS),
-                                      int_ops),
-        "mixed_add_complete": bound(MUL_N * (128 * limb + 1),
-                                    active * (12 * FE_MUL_OPS + FE_SMALL_OPS),
-                                    int_ops),
+        "hash160": sol.bound(*sol.hash_account(HASH_N, True, hops["addr33"]),
+                             int_ops),
+        "hash160_addr65": sol.bound(*sol.hash_account(HASH_N, False,
+                                                      hops["addr65"]), int_ops),
+        "inv_mod_batch": sol.bound(*sol.inv_account(INV_N), int_ops),
+        "inv_mod_batch_mul": sol.bound(*sol.inv_account(MUL_N), int_ops),
+        "mixed_add_incomplete": sol.bound(
+            *sol.mixed_add_account(MUL_N, active), int_ops),
+        "mixed_add_complete": sol.bound(
+            *sol.mixed_add_account(MUL_N, active), int_ops),
     }
     for name, (k_ms, p_ms) in t.items():
         n = {"inv": INV_N, "mix": MUL_N}.get(name[:3], HASH_N)
@@ -964,10 +784,114 @@ def main() -> int:
                f"inversion): kernel {chain_ms:.4f} ms on the device "
                f"(torch.profiler, mean of 20 calls); card {card}")
 
+    # --- h: bench at the card's default B ---------------------------------------------
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    rows = benchlib.bench_rows(dev, B=HASH_N, R=BENCH_R, only=[],
+                               emit=lambda line: phase("h", line))
+    bench_s = time.monotonic() - t0
+    launches_bench = dict(kernels.LAUNCHES)
+    if min(launches_bench.values()) < 1:
+        raise AssertionError(f"a kernel of the bench never ran: {launches_bench}")
+    for row in rows:
+        if not row["share"] <= 1.0:
+            raise AssertionError(f"bench row {row['name']} reads {row['share']:.1%}"
+                                 f" of its bound: the bound's model is wrong")
+    # the K1-K3 rows against the kernels' device times at the rows' width
+    # (phase 6's method): rate B / device ms per iteration
+    by_name = {r["name"].split(" (")[0]: r for r in rows}
+    xb = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
+    qb = [torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev) for _ in range(5)]
+    skip_b = torch.zeros(HASH_N, dtype=torch.bool, device=dev)
+    d14 = mul.n_windows(mul.W)
+    kernel_ms = {
+        "addr33": (t["hash160"][0], "one K1 launch"),
+        "addr65": (t["hash160_addr65"][0], "one K1 launch"),
+        "fe_grpinv": (device_ms(lambda: kernels.inv_mod_batch(xb),
+                                "inv_batch_kernel"), "one K2 launch"),
+        "ec_gtable_mul": (d14 * device_ms(
+            lambda: kernels.proj_add_affine(*qb, skip_b, False),
+            "mixed_add_kernel<false>"), f"{d14} K3 launches"),
+    }
+    checks = {}
+    for key, (k_ms, what) in kernel_ms.items():
+        row = by_name[key]
+        row_ms = row["s_per_iter"] * 1e3
+        ratio = k_ms / row_ms
+        checks[key] = {"row_ms": row_ms, "kernel_ms": k_ms, "rate_ratio": ratio}
+        agree = abs(ratio - 1) <= ROW_TOLERANCE
+        phase("h", f"{row['name']}: {row['mits']:.3f} M it/s = {row_ms:.4f} ms "
+                   f"per iteration against {what} at {k_ms:.4f} ms on the "
+                   f"device (torch.profiler): rate ratio {ratio:.3f}, "
+                   + ("within" if agree else "outside")
+                   + f" {ROW_TOLERANCE:.0%}"
+                   + ("" if agree else f"; the row's loop adds "
+                      f"{row_ms - k_ms:.4f} ms per iteration ("
+                      + ("the fold of a hash word into a limb row: two "
+                         "elementwise kernels" if key.startswith("addr") else
+                         f"{d14} table gathers (index_select)"
+                         if key == "ec_gtable_mul" else "graph replay")
+                      + ")"))
+    phase("h", f"bench: {len(rows)} rows at B={HASH_N} R={BENCH_R}, every share "
+               f"<= 100% (highest {max(r['share'] for r in rows):.1%}), in "
+               f"{bench_s:.1f} s; launches at warm-up and capture "
+               f"{launches_bench}; card {card}")
+
+    # --- i: bench-gtable sweep ------------------------------------------------------------
+    kernels.reset_launches()
+    sweep = benchlib.gtable_sweep(dev, ws=list(SWEEP_WS),
+                                  emit=lambda line: phase("i", line))
+    launches_sweep = dict(kernels.LAUNCHES)
+    if [r.get("w") for r in sweep if "build_s" in r] != list(SWEEP_WS):
+        raise AssertionError(f"bench-gtable: {sweep}")
+    if min(launches_sweep["inv_mod_batch"], launches_sweep["mixed_add"]) < 1:
+        raise AssertionError(f"a kernel of bench-gtable never ran: "
+                             f"{launches_sweep}")
+    phase("i", "bench-gtable: " + "; ".join(
+        f"w={r['w']} build {r['build_s']:.3f} s, peak "
+        f"{r['peak_mb']:.0f} MiB (torch.cuda.max_memory_allocated), scan "
+        f"{r['mul_rate_mkeys']:.3f} M keys/s" for r in sweep)
+        + f"; launches {launches_sweep}; card {card}")
+
+    # --- j: mult-verify ---------------------------------------------------------------
+    kernels.reset_launches()
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = benchlib.mult_verify(dev)
+    verify_s = time.monotonic() - t0
+    launches_verify = dict(kernels.LAUNCHES)
+    if rc != 0 or "OK: all multiplications verified" not in out.getvalue():
+        raise AssertionError(f"mult-verify: rc {rc}, {out.getvalue()[-200:]!r}")
+    if min(launches_verify["inv_mod_batch"], launches_verify["mixed_add"]) < 1:
+        raise AssertionError(f"a kernel of mult-verify never ran: "
+                             f"{launches_verify}")
+    bad = mul.build_gtable(mul.W, dev).clone()
+    digit = next(int(v) for v in mul.window_digits(
+        benchlib.verify_keys(CORRUPT_N), mul.W)[:, 0] if v)
+    bad[0, digit - 1] ^= 1                       # one window-0 entry's x
+    out_bad = io.StringIO()
+    with contextlib.redirect_stdout(out_bad):
+        rc_bad = benchlib.mult_verify(dev, count=CORRUPT_N, table=bad)
+    if rc_bad != 1 or "FAILED" not in out_bad.getvalue():
+        raise AssertionError(f"mult-verify missed a corrupted table entry: "
+                             f"rc {rc_bad}")
+    failed_line = [ln for ln in out_bad.getvalue().splitlines()
+                   if "FAILED" in ln][0].strip()
+    phase("j", f"mult-verify: {VERIFY_N:,} scalars at w={mul.W}, window scan (K3) "
+               f"== double-and-add (CUDA graph per bit), both on the curve, "
+               f"OK in {verify_s:.3f} s (host clock, table build included); "
+               f"launches {launches_verify}; with window-0 entry {digit - 1} "
+               f"corrupted ({CORRUPT_N} scalars): '{failed_line}', rc "
+               f"{rc_bad}; card {card}")
+
     def entry(name, key, source, replaces, **extra):
         launches = {"add": launches_add[name], "mul": launches_mul[name],
                     "rnd": launches_rnd[name],
-                    "add_resume": launches_resume[name]}
+                    "add_resume": launches_resume[name],
+                    "bench": launches_bench[name],
+                    "bench_gtable": launches_sweep[name],
+                    "mult_verify": launches_verify[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": errs[name],
@@ -1001,7 +925,10 @@ def main() -> int:
     ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
         "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
         "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,
-        "rnd_split": rnd_split}
+        "rnd_split": rnd_split, "bench_rows": rows, "bench_checks": checks,
+        "gtable_sweep": sweep, "mult_verify": {
+            "count": VERIFY_N, "w": mul.W, "seconds": verify_s, "rc": rc,
+            "corrupt_rc": rc_bad}, "smoke_s": time.monotonic() - t_start}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

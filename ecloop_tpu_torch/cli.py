@@ -1,13 +1,13 @@
 """Command-line interface of the port: `python -m ecloop_tpu_torch
-add|mul|rnd|blf-gen|blf-check`.
+add|mul|rnd|blf-gen|blf-check|bench|bench-gtable|mult-verify`.
 
 Keeps the reference's flags and output (`-f -o -a -r -d -q -endo -raw
 -seed -c -n`; found keys as `label: hash <- priv` on stdout and TSV in
 the `-o` file; the throttled status line on stderr; 'p'/'r' pause on a
-terminal).  `-device cuda|cpu` picks the device of the searches, `cuda`
-by default; without a GPU that is an error, never a quiet run on the
-CPU.  `blf-gen` and `blf-check` run on the host.  `bench`,
-`bench-gtable` and `mult-verify` are not ported yet.
+terminal).  `-device cuda|cpu` picks the device of the searches and of
+`bench`, `bench-gtable` and `mult-verify`, `cuda` by default; without a
+GPU that is an error, never a quiet run on the CPU.  `blf-gen` and
+`blf-check` run on the host.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ Usage: {name} <cmd> -f <file> [options]
                     (-n <count> -o <file.blf>)
   blf-check       - query a .blf filter (-f) for the hash160 values given
                     as arguments or on stdin
+  bench           - per-kernel device throughput microbenchmarks
+  bench-gtable    - sweep gtable window widths: build time / memory / mul rate
+  mult-verify     - prove the two scalar-mul paths agree on random scalars
 
 Options:
   -f <file>       - targets: hex hash160 list, or a .blf bloom filter
@@ -55,10 +58,10 @@ Options:
   -device <dev>   - cuda (default) or cpu
 
 Batch geometry: ECLOOP_CENTERS, ECLOOP_GROUP_K, ECLOOP_STEPS_PER_CALL (add),
-ECLOOP_MUL_BATCH (mul).
+ECLOOP_MUL_BATCH (mul).  bench: ECLOOP_BENCH_B, _R, _ONLY, _SOL, _VERBOSE;
+bench-gtable: ECLOOP_GTABLE_WS, ECLOOP_BENCH_B; mult-verify:
+ECLOOP_VERIFY_N, ECLOOP_VERIFY_W.
 """
-
-NOT_PORTED = ("bench", "bench-gtable", "mult-verify")
 
 
 # --- arguments (reference args_bool / arg_str) ----------------------------------
@@ -597,10 +600,12 @@ def main(argv: list[str] | None = None) -> int:
         return run_blf_gen(args, sys.stdin.read())
     if cmd == "blf-check":
         return run_blf_check(args, sys.stdin)
-    if cmd in NOT_PORTED:
-        print(f"{cmd}: not yet ported to ecloop_tpu_torch "
-              f"(use python -m ecloop_tpu {cmd})", file=sys.stderr)
-        return 1
+    if cmd in ("bench", "bench-gtable", "mult-verify"):
+        device = select_device(args)
+        from . import benchlib
+        return {"bench": benchlib.run_bench,
+                "bench-gtable": benchlib.run_bench_gtable,
+                "mult-verify": benchlib.mult_verify}[cmd](device)
     if args.get_bool("-v"):
         print(f"ecloop-tpu-torch v{__version__}")
         return 0

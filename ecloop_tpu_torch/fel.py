@@ -15,6 +15,8 @@ layer.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -73,11 +75,27 @@ def ints_to_tensor(xs, device) -> torch.Tensor:
     return from_last(ints_to_limbs(xs), device)
 
 
+def random_limbs(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(16, n) int64 limbs of seeded field elements below p (the top limb
+    below 0xFFFF), for benches and card checks."""
+    a = rng.integers(0, 1 << 16, size=(NLIMBS, n), dtype=np.int64)
+    a[NLIMBS - 1] = rng.integers(0, M16, size=n, dtype=np.int64)
+    return a
+
+
 def const(x: int, like: torch.Tensor) -> torch.Tensor:
     """Constant x as a (16, 1, ..., 1) tensor that broadcasts against
-    `like`."""
-    t = torch.tensor(int_to_limbs(x).astype(np.int64), device=like.device)
-    return t.reshape((NLIMBS,) + (1,) * (like.dim() - 1))
+    `like`.  Made once per device and number of dimensions and kept, so
+    that a CUDA graph can capture code that uses it after one warm-up
+    run (the cache never evicts: a captured graph keeps reading the
+    tensor); callers must not write to it."""
+    return _const(x, like.device, like.dim())
+
+
+@functools.cache
+def _const(x: int, device: torch.device, dim: int) -> torch.Tensor:
+    t = torch.tensor(int_to_limbs(x).astype(np.int64), device=device)
+    return t.reshape((NLIMBS,) + (1,) * (dim - 1))
 
 
 # --- carries -------------------------------------------------------------------

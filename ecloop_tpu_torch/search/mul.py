@@ -34,6 +34,7 @@ N = golden.N
 NLIMBS = fel.NLIMBS
 W = 14                   # window width: 19 windows, 311,277 table points
 INFLIGHT = 4             # jobs queued on the device before the oldest drains
+BUILD_CHUNK = 1 << 21    # chords per K2 call of the table build
 
 
 def n_windows(w: int) -> int:
@@ -139,7 +140,9 @@ def build_gtable(w: int = W, device="cuda") -> torch.Tensor:
     The host makes the d*w base points 2^r * 2^(w*i) * G by doubling.
     Then every row grows in w - 1 lockstep rounds: round r fills the
     columns of j in (2^r, 2^(r+1)) as T[j] = T[j - 2^r] + T[2^r], one
-    batch of chord additions with one K2 inversion for all rows.  The
+    batch of chord additions with one K2 inversion for all rows (in
+    slices of at most BUILD_CHUNK chords, which bounds the plain
+    product's temporaries; up to w = 18 a round is one slice).  The
     two scalars are (j - 2^r) * 2^(w*i) and 2^r * 2^(w*i) with
     0 < j - 2^r < 2^r, and n is prime, so P != +-Q always holds: the
     chord formula is valid and the affine result is canonical, equal to
@@ -152,23 +155,28 @@ def build_gtable(w: int = W, device="cuda") -> torch.Tensor:
     for _ in range(d * w):
         pts.append(p)
         p = golden.point_dbl(p)
-    tx = torch.empty((NLIMBS, d, n1), dtype=torch.int64, device=device)
-    ty = torch.empty_like(tx)
+    txy = torch.empty((2 * NLIMBS, d * n1), dtype=torch.int64, device=device)
+    tx = txy[:NLIMBS].view(NLIMBS, d, n1)
+    ty = txy[NLIMBS:].view(NLIMBS, d, n1)
     pow2 = [(1 << r) - 1 for r in range(w)]            # column of j = 2^r
     tx[:, :, pow2] = fel.ints_to_tensor([q[0] for q in pts], device).reshape(
         NLIMBS, d, w)
     ty[:, :, pow2] = fel.ints_to_tensor([q[1] for q in pts], device).reshape(
         NLIMBS, d, w)
+    step = max(1, BUILD_CHUNK // d)
     for r in range(1, w):
         lo = 1 << r
-        px, py = tx[:, :, :lo - 1], ty[:, :, :lo - 1]  # j - 2^r = 1 .. 2^r-1
         qx, qy = tx[:, :, lo - 1:lo], ty[:, :, lo - 1:lo]
-        dx = fel.sub_mod(qx, px)
-        inv = kernels.inv_mod_batch(dx.reshape(NLIMBS, -1)).reshape(dx.shape)
-        rx, ry = ecc.affine_add_rows(px, py, qx, qy, inv)
-        tx[:, :, lo:2 * lo - 1] = rx
-        ty[:, :, lo:2 * lo - 1] = ry
-    return torch.cat([tx.reshape(NLIMBS, -1), ty.reshape(NLIMBS, -1)])
+        for a in range(0, lo - 1, step):               # j - 2^r = a+1 .. b
+            b = min(lo - 1, a + step)
+            px, py = tx[:, :, a:b], ty[:, :, a:b]
+            dx = fel.sub_mod(qx, px)
+            inv = kernels.inv_mod_batch(dx.reshape(NLIMBS, -1)).reshape(
+                dx.shape)
+            rx, ry = ecc.affine_add_rows(px, py, qx, qy, inv)
+            tx[:, :, lo + a:lo + b] = rx
+            ty[:, :, lo + a:lo + b] = ry
+    return txy
 
 
 def gtable_from_numpy(tx: np.ndarray, ty: np.ndarray, device) -> torch.Tensor:
@@ -178,36 +186,58 @@ def gtable_from_numpy(tx: np.ndarray, ty: np.ndarray, device) -> torch.Tensor:
 
 # --- the device step -------------------------------------------------------------
 
-def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
-                  device):
-    """The device step: (dig, txy, bits) -> masks.  dig is the (d, batch)
-    int32 window digits, txy the table, bits the filter's device bits;
-    masks is (V, batch/32) int64, one packed hit plane per address form.
+def window_offsets(w: int, device) -> torch.Tensor:
+    """(d, 1) offsets that turn window digits into flat table indices."""
+    return (torch.arange(n_windows(w), dtype=torch.int64, device=device)
+            * ((1 << w) - 1) - 1)[:, None]
+
+
+def window_index(dig: torch.Tensor, offs: torch.Tensor):
+    """(d, B) window digits -> (flat table indices, skip mask): digit j
+    of window i reads column (2^w - 1) * i + j - 1, digit 0 skips."""
+    return (dig.to(torch.int64) + offs).clamp_(min=0), dig == 0
+
+
+def window_scan(txy: torch.Tensor, idx: torch.Tensor, skip: torch.Tensor,
+                q):
+    """The production window scan: from the projective accumulator q,
+    add the gathered table point of every window (K3), skipping digit-0
+    lanes.  idx and skip are `window_index`'s; returns (x, y, z).
 
     Windows 0 .. d-2 use K3's incomplete form: there the accumulator's
     scalar is below 2^(w*i) and the table point's is digit * 2^(w*i), so
     they never match.  The top window's table points wrap mod n, so it
     takes the complete form."""
+    qx, qy, qz = q
+    d = idx.shape[0]
+    for i in range(d):
+        g = txy.index_select(1, idx[i])
+        qx, qy, qz = kernels.proj_add_affine(
+            qx, qy, qz, g[:NLIMBS], g[NLIMBS:], skip[i],
+            complete=(i == d - 1))
+    return qx, qy, qz
+
+
+def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
+                  device):
+    """The device step: (dig, txy, bits) -> masks.  dig is the (d, batch)
+    int32 window digits, txy the table, bits the filter's device bits;
+    masks is (V, batch/32) int64, one packed hit plane per address form.
+    The window scan (`window_scan`) starts at infinity; one K2 call
+    reduces to affine, then K1 hashes and the filter probes."""
     device = torch.device(device)
-    n1 = (1 << w) - 1
     d = n_windows(w)
     labels = _labels(cfg)
     first_words = filt.first_words(device)
-    offs = (torch.arange(d, dtype=torch.int64, device=device) * n1 - 1)[:, None]
+    offs = window_offsets(w, device)
     zero = torch.zeros((NLIMBS, batch), dtype=torch.int64, device=device)
     one = fel.const(1, zero).expand(NLIMBS, batch).contiguous()
 
     def step(dig, txy, bits):
         if tuple(dig.shape) != (d, batch):
             raise ValueError(f"digits {tuple(dig.shape)}, expected {(d, batch)}")
-        idx = (dig.to(torch.int64) + offs).clamp_(min=0)
-        skip = dig == 0
-        qx, qy, qz = zero, one, zero
-        for i in range(d):
-            g = txy.index_select(1, idx[i])
-            qx, qy, qz = kernels.proj_add_affine(
-                qx, qy, qz, g[:NLIMBS], g[NLIMBS:], skip[i],
-                complete=(i == d - 1))
+        idx, skip = window_index(dig, offs)
+        qx, qy, qz = window_scan(txy, idx, skip, (zero, one, zero))
         ax, ay = ecc.proj_to_affine_rows(qx, qy, qz, inv=kernels.inv_mod_batch)
         masks = []
         for _, is33 in labels:

@@ -13,7 +13,7 @@ import torch
 from ecloop_tpu import fel as jfel
 from ecloop_tpu import golden
 from ecloop_tpu import hash160 as jhash
-from ecloop_tpu_torch import ecc, fel, hash160, kernels
+from ecloop_tpu_torch import ecc, fel, hash160, kernels, sol
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,24 +108,13 @@ def test_golden_points_from_host_helper():
     assert fel.limbs_to_ints(ecc.points_host([0])[0]) == [0]
 
 
-def _chip_smoke():
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("is33,alu,either", [(True, 1474, 581),
                                              (False, 2449, 941)])
 def test_hash_op_count_runs_k1s_function(is33, alu, either):
-    """chip_smoke.py's HashOpCount, which counts the operations K1's bound
-    prices, computes K1's function (the plain rows pipeline's words, the
-    golden hash of curve points), and its count does not depend on the
-    key."""
-    cs = _chip_smoke()
+    """sol.HashOpCount, which counts the operations K1's bound prices
+    (in the bench and in chip_smoke.py), computes K1's function (the plain
+    rows pipeline's words, the golden hash of curve points), and its count
+    does not depend on the key."""
     rng = np.random.default_rng(11)
     keys = [int(k) for k in rng.integers(1, 1 << 62, size=3)]
     x, y = (np.asarray(a).T.astype(np.int64) for a in ecc.points_host(keys))
@@ -134,7 +123,7 @@ def test_hash_op_count_runs_k1s_function(is33, alu, either):
     rows = (hash160.addr33_hash_rows if is33 else hash160.addr65_hash_rows)(
         torch.from_numpy(x), torch.from_numpy(y)).numpy()
     for e in range(x.shape[1]):
-        got = cs.hash_ops(x[:, e].tolist(), y[:, e].tolist(), is33)
+        got = sol.hash_ops(x[:, e].tolist(), y[:, e].tolist(), is33)
         assert got == (alu, either, rows[:, e].tolist())
     for e, k in enumerate(keys):
         p = golden.point_mul(k)

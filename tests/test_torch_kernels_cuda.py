@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from ecloop_tpu_torch import ecc, fel, filters, golden, hash160, kernels
+from ecloop_tpu_torch import benchlib, ecc, fel, filters, golden, hash160
+from ecloop_tpu_torch import kernels
 from ecloop_tpu_torch.search import add, mul
 from ecloop_tpu_torch.search.common import SearchConfig
 
@@ -134,3 +135,72 @@ def test_mul_step_on_card_matches_cpu(dev):
     assert torch.equal(outs[0], outs[1])
     assert int(np.unpackbits(outs[0].numpy().astype("<u4").view(np.uint8)
                              ).sum()) >= len(keys)
+
+
+def test_kernels_replay_from_a_graph(dev):
+    """K1, K2 and K3 launched from a captured CUDA graph's replay give what
+    their eager launches give; a chain of 4 captured K1 iterations (the
+    bench's fold) equals 4 eager ones."""
+    n = 32768
+    x, y = _limbs(n, 11, dev), _limbs(n, 12, dev)
+    q = [_limbs(n, s, dev) for s in (13, 14, 15, 16, 17)]
+    skip = torch.from_numpy(np.random.default_rng(18).random(n) < 0.1).to(dev)
+    calls = [lambda: (kernels.addr33_hash_rows(x, y),),
+             lambda: (kernels.addr65_hash_rows(x, y),),
+             lambda: (kernels.inv_mod_batch(x),),
+             lambda: kernels.proj_add_affine(*q, skip, False),
+             lambda: kernels.proj_add_affine(*q, skip, True)]
+    for call in calls:
+        want = call()
+        loop = benchlib.Loop(lambda *_: call(),
+                             [torch.empty_like(t) for t in want])
+        loop()
+        torch.cuda.synchronize()
+        for s, w in zip(loop.state, want):
+            assert torch.equal(s, w)
+
+    def fold(x, y):
+        x[0].bitwise_xor_(kernels.addr33_hash_rows(x, y)[0] & 0xFFFF)
+        return x, y
+    eager = x.clone()
+    for _ in range(4):
+        fold(eager, y)
+    chained = x.clone()
+    loop = benchlib.Loop(fold, (chained, y), iters=4)
+    chained.copy_(x)                     # undo the warm-up's iteration
+    loop()
+    torch.cuda.synchronize()
+    assert torch.equal(chained, eager)
+
+
+def test_mult_verify_on_card(dev, monkeypatch, capsys):
+    monkeypatch.setenv("ECLOOP_VERIFY_W", "8")
+    assert benchlib.mult_verify(dev, count=256) == 0
+    assert "OK: all multiplications verified" in capsys.readouterr().out
+
+
+def test_window_scan_gives_the_mul_steps_masks(dev):
+    """The factored window scan, reduced (K2), hashed (K1) and probed by
+    hand, gives make_mul_step's masks at 32,768 lanes; its points are k*G."""
+    filt = filters.load_filter(os.path.join(os.path.dirname(__file__), "..",
+                                            "data", "btc-bw-hash"))
+    cfg = mul.SearchConfig(addr33=True, addr65=True)
+    w, batch = 8, 32768
+    keys = benchlib.verify_keys(batch)
+    dig = torch.from_numpy(np.ascontiguousarray(mul.window_digits(keys, w).T,
+                                                dtype=np.int32)).to(dev)
+    table = mul.build_gtable(w, dev)
+    bits = torch.from_numpy(filt.device_bits.view(np.int32)).to(dev)
+    masks = mul.make_mul_step(cfg, filt, w, batch, dev)(dig, table, bits)
+    idx, skip = mul.window_index(dig, mul.window_offsets(w, dev))
+    zero = torch.zeros((16, batch), dtype=torch.int64, device=dev)
+    one = fel.const(1, zero).expand(16, batch).contiguous()
+    qx, qy, qz = mul.window_scan(table, idx, skip, (zero, one, zero))
+    ax, ay = ecc.proj_to_affine_rows(qx, qy, qz, inv=kernels.inv_mod_batch)
+    fw = filt.first_words(dev)
+    want = torch.stack([add.pack_mask(filt.device_probe(k(ax, ay), bits, fw))
+                        for k in (kernels.addr33_hash_rows,
+                                  kernels.addr65_hash_rows)])
+    assert torch.equal(masks, want)
+    got = list(zip(fel.tensor_to_ints(ax[:, :8]), fel.tensor_to_ints(ay[:, :8])))
+    assert got == [golden.point_mul(k) for k in keys[:8]]

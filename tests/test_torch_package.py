@@ -61,7 +61,8 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, ecloop_tpu_torch, ecloop_tpu_torch.cli, "
             "ecloop_tpu_torch.search.add, ecloop_tpu_torch.search.mul, "
             "ecloop_tpu_torch.search.rnd, ecloop_tpu_torch.checkpoint, "
-            "ecloop_tpu_torch.kernels, ecloop_tpu_torch._build; "
+            "ecloop_tpu_torch.kernels, ecloop_tpu_torch._build, "
+            "ecloop_tpu_torch.benchlib, ecloop_tpu_torch.sol; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'ecloop_tpu')))")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
