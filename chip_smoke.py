@@ -16,6 +16,14 @@ possible time (ecloop_tpu_torch/sol.py's account), and runs `bench`
 (every row within its bound, the K1-K3 rows against the kernels' device
 times), `bench-gtable` at w = 8, 14, 16 and `mult-verify` on 16,000
 scalars (and once more with a corrupted table entry, which must fail).
+The multi-device paths run on the one card: `add -t 2` prints the
+clamped device count, the engines split `add` over [cuda:0] x 2 and x 4
+(-endo) and `mul` over [cuda:0] x 2 with the single-device found sets
+and counts, and two `add` processes joined over gloo on 127.0.0.1 find
+disjoint halves of the nine keys (phases k and l); K1 is timed once
+more after them.  Phases 1, 2 and a check every width (elements per
+launch) that the searches launch a kernel at, the shards' included, and
+the script fails if a search ran a kernel at a width they did not check.
 Each phase prints one line or more; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -28,6 +36,8 @@ import io
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -54,6 +64,17 @@ BENCH_R = 256            # phase h: iterations per bench row (the CLI's 512 cut)
 SWEEP_WS = (8, 14, 16)   # phase i: bench-gtable widths
 CORRUPT_N = 256          # phase j: scalars of the corrupted-table run
 ROW_TOLERANCE = 0.25     # phase h: a K1-K3 row's rate against its device time
+TWO_PROCS_TIMEOUT_S = 600   # phase l: each process's limit
+# phase k's `add` runs: (name, devices, range_e, endo) over [cuda:0] x n,
+# from range_s 0x8000
+SPLITS = (("add_one_device", 1, 0xFFFFFF, False),
+          ("add_sharded", 2, 0xFFFFFF, False),
+          ("add_sharded_endo", 4, 0xFFFF, True))
+TWO_PROCS = 2            # phase l: processes of one device each
+PROFILE_TRIES = 8        # profiler windows per device time (device_ms), and
+PROFILE_PAUSE_S = 1.0    # the pause after a short one
+SHORT_WINDOWS = []       # the short windows' messages, for the report
+FOUND_LINE = re.compile(r"^addr33: [0-9a-f]{40} <- ([0-9a-f]{64})$", re.M)
 # The least-time model (bound_ms) and every kernel's account live in
 # ecloop_tpu_torch/sol.py, which the bench shares: the larger of bytes
 # over the memory rate and 32-bit integer operations over the card's
@@ -108,26 +129,77 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float:
     """Mean device time in ms of one launch of the kernel whose name
     holds `kernel`, over `calls` calls of fn, from torch.profiler: the
     CUDA-event time of a wrapper call includes its host work, which is
-    longer than the kernel itself for K1 and K3.  The profiler may miss
-    a launch of the window (it was seen to report 19 of 20), so the mean
-    is over the launches it saw."""
+    longer than the kernel itself for K1 and K3.
+
+    The profiler drops the device records of the first launches after
+    it starts, more of them late in a long process, and now and then a
+    whole window's, two in a row at times; its host side keeps every
+    launch call.  So each window follows a warm-up window of the same
+    calls (the schedule's warmup step, traced and thrown away), the mean
+    is over the launches it saw, and a window that saw fewer than half
+    is printed with what the profiler did see and taken again after a
+    pause, PROFILE_TRIES windows in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not calls // 2 <= len(us) <= calls:
-        raise AssertionError(f"profiler saw {len(us)} launches of {kernel}, "
-                             f"expected {calls}")
-    return sum(us) / len(us) / 1e3
+    for _ in range(PROFILE_TRIES):
+        windows = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: windows.append(p.events())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = windows[-1] if windows else []
+        us = [e.time_range.elapsed_us() for e in events
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if calls // 2 <= len(us) <= calls:
+            return sum(us) / len(us) / 1e3
+        seen = collections.Counter(e.name[:60] for e in events
+                                   if e.device_type == DeviceType.CUDA)
+        host = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and "LaunchKernel" in e.name)
+        msg = (f"profiler saw {len(us)} of {calls} launches of {kernel}; "
+               f"launch calls on the host {host}; device events {dict(seen)}")
+        phase("profiler", msg)
+        SHORT_WINDOWS.append(msg)
+        time.sleep(PROFILE_PAUSE_S)
+    raise AssertionError(msg)
+
+
+def split_config(n: int, range_e: int, endo: bool):
+    """`add` from 0x8000 over n devices with the CLI's geometry: n times
+    the one-device centers (cli.search_config)."""
+    from ecloop_tpu_torch.search.common import SearchConfig
+
+    cfg = SearchConfig(range_s=0x8000, range_e=range_e, endo=endo)
+    cfg.centers *= n
+    return cfg
+
+
+def shard_widths(cfg, n: int) -> tuple[int, int]:
+    """(K1 keys, K2 elements) per launch of one shard's `add` step over n
+    devices: M/n*K keys, and the M/n*K/2 chords plus M/n advances."""
+    m = cfg.centers // n
+    return m * cfg.group_k, m * cfg.group_k // 2 + m
+
+
+def gtable_widths(w: int) -> set[int]:
+    """K2's widths in mul.build_gtable(w): round r inverts d x (2^r - 1)
+    chords, in slices of at most BUILD_CHUNK // d columns."""
+    from ecloop_tpu_torch.search import mul
+
+    d = mul.n_windows(w)
+    step = max(1, mul.BUILD_CHUNK // d)
+    return {d * (min((1 << r) - 1, a + step) - a)
+            for r in range(1, w) for a in range(0, (1 << r) - 1, step)}
 
 
 def sass_mix(lib_path: str) -> dict | None:
@@ -261,7 +333,7 @@ def mul_breakdown(lines, dev) -> dict:
     from ecloop_tpu_torch.search.common import SearchConfig
 
     eng = mul.MulSearch(SearchConfig(addr33=True, addr65=True),
-                        filters.load_filter(BW_HASH), torch.device("cuda"),
+                        filters.load_filter(BW_HASH), dev,
                         batch=MUL_N)
     t0 = time.monotonic()
     words = mul.parse_hex_words(lines)
@@ -276,13 +348,14 @@ def mul_breakdown(lines, dev) -> dict:
     dig[:] = mul.window_digits_words(words[:MUL_N], eng.w).T
     dig = torch.from_numpy(dig).to(dev)
     steps = 4
-    eng.step_fn(dig, eng.txy, eng.bits)
+    shard = eng.shards[0]
+    shard.step_fn(dig, shard.txy, shard.bits)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            eng.step_fn(dig, eng.txy, eng.bits)
+            shard.step_fn(dig, shard.txy, shard.bits)
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
     dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -294,13 +367,61 @@ def mul_breakdown(lines, dev) -> dict:
             "busy_share": device_ms / (wall_s * 1e3 / steps)}
 
 
-def check_vector(run, vector: set) -> None:
-    labels = [f.label for f in run.found]
-    if ({f.priv for f in run.found} != vector or len(run.found) != 1080
+def check_vector(found, vector: set) -> None:
+    labels = [f.label for f in found]
+    if ({f.priv for f in found} != vector or len(found) != 1080
             or labels.count("addr33") != 540 or labels.count("addr65") != 540):
-        raise AssertionError(f"mul vector: {len(run.found)} found "
+        raise AssertionError(f"mul vector: {len(found)} found "
                              f"({labels.count('addr33')} addr33, "
                              f"{labels.count('addr65')} addr65)")
+
+
+def two_processes(argv: list[str]) -> list[dict]:
+    """Run the CLI's main(argv) as processes 0 and 1 of one gloo group on
+    127.0.0.1, each with a time limit; per process its found keys, the
+    k_checked of its last status line, and its kernel launches and their
+    widths (printed after main returns).  Fails unless both exit 0 with
+    the banner."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("import json, sys; from ecloop_tpu_torch import cli, kernels; "
+            "rc = cli.main(['ecloop'] + sys.argv[1:]); "
+            "print(json.dumps(kernels.LAUNCHES)); print(json.dumps("
+            "{k: sorted(v) for k, v in kernels.WIDTHS.items()})); "
+            "sys.exit(rc)")
+    env = {**os.environ, "ECLOOP_COORDINATOR": f"127.0.0.1:{port}",
+           "ECLOOP_NUM_PROCS": str(TWO_PROCS)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *argv], cwd=ROOT,
+        env={**env, "ECLOOP_PROC_ID": str(i)}, stdin=subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for i in range(TWO_PROCS)]
+    try:
+        outs = [p.communicate(timeout=TWO_PROCS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    results = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        err = err.replace("\r", "\n")
+        if p.returncode != 0:
+            raise AssertionError(f"process {i} exited {p.returncode}: "
+                                 f"{err[-2000:]}")
+        if (f"process {i}/{TWO_PROCS} ~ local devices: 1 / global: "
+                f"{TWO_PROCS}") not in err:
+            raise AssertionError(f"process {i}: no banner in {err[:400]!r}")
+        status = [ln for ln in err.splitlines() if " Mkeys/s ~ " in ln][-1]
+        tail = out.strip().splitlines()
+        results.append({
+            "found": {int(k, 16) for k in FOUND_LINE.findall(out)},
+            "k_checked": int(status.rsplit(" / ", 1)[1].split()[0]
+                             .replace(",", "")),
+            "launches": json.loads(tail[-2]),
+            "widths": json.loads(tail[-1])})
+    return results
 
 
 def main() -> int:
@@ -348,29 +469,43 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     errs = {}
+    # the widths the searches launch K1 and K2 at: the one-device step,
+    # the shards of phases k and l, `mul`'s jobs and its table build
+    # (bench, bench-gtable and mult-verify add HASH_N and VERIFY_N)
+    split_widths = [shard_widths(split_config(n, re_, endo), n)
+                    for _, n, re_, endo in SPLITS + (
+                        ("two_processes", TWO_PROCS, 0xFFFFFF, False),)]
+    hash_ns = sorted({HASH_N, MUL_N} | {w for w, _ in split_widths},
+                     reverse=True)
+    inv_ns = sorted({INV_N, MUL_N, GTABLE_N, HASH_N, VERIFY_N, 1000, 33, 1}
+                    | {w for _, w in split_widths} | gtable_widths(mul.W),
+                    reverse=True)
 
     # --- 1: K1 against its plain version --------------------------------------
-    x = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
-    y = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
     err, hops = 0, {}
-    for name, k, p in (("addr33", kernels.addr33_hash_rows,
-                        hash160.addr33_hash_rows),
-                       ("addr65", kernels.addr65_hash_rows,
-                        hash160.addr65_hash_rows)):
-        got, want = k(x, y), p(x, y)
-        torch.cuda.synchronize()
-        e = int((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 {name} differs from its plain version "
-                                 f"(max abs err {e})")
-        err = max(err, e)
-        # the bound's operation count, from K1's function run on key 0
-        alu, either, words = sol.hash_ops(x[:, 0].tolist(),
-                                          y[:, 0].tolist(), name == "addr33")
-        if words != got[:, 0].tolist():
-            raise AssertionError(f"HashOpCount {name} computes {words}, "
-                                 f"K1 {got[:, 0].tolist()}")
-        hops[name] = {"alu": alu, "either": either}
+    for n in hash_ns:
+        x = torch.from_numpy(fel.random_limbs(rng, n)).to(dev)
+        y = torch.from_numpy(fel.random_limbs(rng, n)).to(dev)
+        for name, k, p in (("addr33", kernels.addr33_hash_rows,
+                            hash160.addr33_hash_rows),
+                           ("addr65", kernels.addr65_hash_rows,
+                            hash160.addr65_hash_rows)):
+            got, want = k(x, y), p(x, y)
+            torch.cuda.synchronize()
+            e = int((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {name} differs from its plain "
+                                     f"version at {n} keys (max abs err {e})")
+            err = max(err, e)
+            if n != HASH_N:
+                continue
+            # the bound's operation count, from K1's function run on key 0
+            alu, either, words = sol.hash_ops(
+                x[:, 0].tolist(), y[:, 0].tolist(), name == "addr33")
+            if words != got[:, 0].tolist():
+                raise AssertionError(f"HashOpCount {name} computes {words}, "
+                                     f"K1 {got[:, 0].tolist()}")
+            hops[name] = {"alu": alu, "either": either}
     keys = [int(k) for k in rng.integers(1, 1 << 62, size=8)]
     gx, gy = (fel.from_last(a, dev) for a in ecc.points_host(keys))
     for is33, k in ((True, kernels.addr33_hash_rows),
@@ -382,7 +517,7 @@ def main() -> int:
                 raise AssertionError(f"K1 hash of {key:#x} (addr33={is33}) "
                                      f"is {got}")
     errs["hash160"] = err
-    phase("1", f"K1 hash160 == plain at {HASH_N} keys (addr33, addr65), "
+    phase("1", f"K1 hash160 == plain at {hash_ns} keys (addr33, addr65), "
                f"max abs err {err} (tolerance 0: integer math); 8 points "
                f"== host oracle")
     for name, h in hops.items():
@@ -394,7 +529,7 @@ def main() -> int:
     p = fel.P
     blk = kernels.inv_block_elements()
     err, cases = 0, []
-    for n in (INV_N, MUL_N, GTABLE_N, HASH_N, VERIFY_N, 1000, 33, 1):
+    for n in inv_ns:
         a = fel.random_limbs(rng, n)
         for i, v in enumerate((0, 1, p - 1)[:n]):
             a[:, i] = fel.int_to_limbs(v)
@@ -419,9 +554,10 @@ def main() -> int:
             if w != (pow(v, p - 2, p) if v else 0):
                 raise AssertionError(f"K2: inverse of {v:#x} is {w:#x}")
     errs["inv_mod_batch"] = err
-    phase("2", f"K2 inv_mod_batch == plain at {INV_N}, {MUL_N}, {GTABLE_N}, "
-               f"{HASH_N} (bench), {VERIFY_N} (mult-verify), 1000, 33 and 1 "
-               f"elements (0, 1, p-1 first; zeros at the end, "
+    phase("2", f"K2 inv_mod_batch == plain at {inv_ns} elements (the "
+               f"searches' steps, shards and table build; {HASH_N} the "
+               f"bench's, {VERIFY_N} mult-verify's) (0, 1, p-1 first; zeros "
+               f"at the end, "
                f"across a {blk}-element block edge and over one whole block) "
                f"and on 1000 zeros, max abs err {err} (tolerance 0); 64 spot "
                f"checks each == pow(x, p-2, p)")
@@ -454,6 +590,8 @@ def main() -> int:
                f"P + Q")
 
     # --- 3: the main path ---------------------------------------------------------
+    for v in kernels.WIDTHS.values():
+        v.clear()
     kernels.reset_launches()
     run = cli.run_add(cli.Args(["ecloop", "add", "-f", PUZZLES,
                                 "-r", "8000:ffffff"]))
@@ -468,6 +606,7 @@ def main() -> int:
     if min(launches_add["hash160"], launches_add["inv_mod_batch"]) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches_add}")
     rate = run.k_checked / run.seconds
+    add_s = run.seconds
     phase("3", f"add -r 8000:ffffff: 9/9 keys, k_checked {run.k_checked:,} "
                f"in {run.seconds:.3f} s = {rate:,.0f} keys/s; launches "
                f"{launches_add}; card {card}")
@@ -654,7 +793,7 @@ def main() -> int:
     # --- b: the w=14 table, built on the card ---------------------------------------
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    table = mul.build_gtable(mul.W, torch.device("cuda"))   # the CLI's key
+    table = mul.build_gtable(mul.W, dev)                    # the CLI's key
     torch.cuda.synchronize()
     gtable_s = time.monotonic() - t0
     n1 = (1 << mul.W) - 1
@@ -675,7 +814,7 @@ def main() -> int:
         bw_lines = f.read().split()
     vector = {int(ln, 16) for ln in bw_lines}
     run, launches_mul = mul_run(cli, kernels, bw_lines)
-    check_vector(run, vector)
+    check_vector(run.found, vector)
     if run.k_checked != 1080:
         raise AssertionError(f"mul k_checked {run.k_checked}")
     phase("c", f"mul -a cu on btc-bw-priv: 1080 found (540 addr33, 540 "
@@ -689,7 +828,7 @@ def main() -> int:
                                   replace=False), bw_lines):
         lines[pos] = ln
     run = mul_run(cli, kernels, lines)[0]
-    check_vector(run, vector)
+    check_vector(run.found, vector)
     if run.k_checked != RATE_KEYS:
         raise AssertionError(f"mul k_checked {run.k_checked}")
     mul_rate = run.k_checked / run.seconds
@@ -785,6 +924,7 @@ def main() -> int:
                f"(torch.profiler, mean of 20 calls); card {card}")
 
     # --- h: bench at the card's default B ---------------------------------------------
+    searched = {k: set(v) for k, v in kernels.WIDTHS.items()}
     kernels.reset_launches()
     t0 = time.monotonic()
     rows = benchlib.bench_rows(dev, B=HASH_N, R=BENCH_R, only=[],
@@ -885,13 +1025,133 @@ def main() -> int:
                f"corrupted ({CORRUPT_N} scalars): '{failed_line}', rc "
                f"{rc_bad}; card {card}")
 
+    # --- k: the searches split over [cuda:0] * n in one process -----------------
+    for v in kernels.WIDTHS.values():
+        v.clear()
+    out = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(out):
+        run = cli.run_add(cli.Args(["ecloop", "add", "-f", PUZZLES,
+                                    "-r", "8000:ffff", "-t", "2"]))
+    launches_clamp = dict(kernels.LAUNCHES)
+    n_cards = min(2, torch.cuda.device_count())
+    if not out.getvalue().startswith(f"devices: {n_cards} ~ "):
+        raise AssertionError(f"add -t 2 printed {out.getvalue()[:80]!r}")
+    if [f.priv for f in run.found] != [0xC936] or run.k_checked != 0x7FFF:
+        raise AssertionError(f"add -t 2: {run.found}, {run.k_checked}")
+    phase("k", f"add -t 2 with {torch.cuda.device_count()} card(s): "
+               f"'devices: {n_cards}', c936 found, k_checked {run.k_checked:,}")
+    puzzles = filters.load_filter(PUZZLES)
+    split_runs = {}
+    for name, n, range_e, endo in SPLITS:
+        cfg = split_config(n, range_e, endo)
+        eng = add.AddSearch(cfg, puzzles, [dev] * n)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        found = eng.run_range()
+        torch.cuda.synchronize()
+        split_runs[name] = {"devices": n, "centers": cfg.centers,
+                            "seconds": time.monotonic() - t0,
+                            "k_checked": eng.k_checked,
+                            "launches": dict(kernels.LAUNCHES)}
+        if min(kernels.LAUNCHES["hash160"],
+               kernels.LAUNCHES["inv_mod_batch"]) < n:
+            raise AssertionError(f"{name}: a shard's kernel never ran: "
+                                 f"{kernels.LAUNCHES}")
+        privs = {f.priv for f in found}
+        if cfg.endo:
+            ok = 0xC936 in privs and eng.k_checked == 196_602
+        else:
+            ok = (privs == NINE_KEYS and len(found) == 9
+                  and eng.k_checked == 16_777_216)
+        if not ok:
+            raise AssertionError(f"{name}: found {sorted(map(hex, privs))}, "
+                                 f"k_checked {eng.k_checked}")
+    meng = mul.MulSearch(common.SearchConfig(addr33=True, addr65=True),
+                         filters.load_filter(BW_HASH), [dev] * 2,
+                         batch=2 * MUL_N)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    found = meng.run_lines(bw_lines)
+    torch.cuda.synchronize()
+    split_runs["mul_sharded"] = {"devices": 2, "seconds": time.monotonic() - t0,
+                                 "k_checked": meng.k_checked,
+                                 "launches": dict(kernels.LAUNCHES)}
+    check_vector(found, vector)
+    if meng.k_checked != 1080 or min(kernels.LAUNCHES.values()) < 2:
+        raise AssertionError(f"sharded mul: k_checked {meng.k_checked}, "
+                             f"launches {kernels.LAUNCHES}")
+    a1, a2, a4, m2 = (split_runs[k] for k in (
+        "add_one_device", "add_sharded", "add_sharded_endo", "mul_sharded"))
+    phase("k", f"AddSearch over [cuda:0] x 2 ({a2['centers']} centers), add -r "
+               f"8000:ffffff: 9/9 keys, k_checked {a2['k_checked']:,} in "
+               f"{a2['seconds']:.3f} s against {a1['seconds']:.3f} s on "
+               f"[cuda:0] ({a1['centers']} centers; ratio "
+               f"{a2['seconds'] / a1['seconds']:.2f}; phase 3, through the "
+               f"CLI: {add_s:.3f} s); launches "
+               f"{a2['launches']}; x 4 ({a4['centers']} centers) with -endo "
+               f"over 8000:ffff: c936 found, k_checked {a4['k_checked']:,} in "
+               f"{a4['seconds']:.3f} s; MulSearch over [cuda:0] x 2 (batch "
+               f"{2 * MUL_N:,}) on btc-bw-priv: 1080 found (540 addr33, 540 "
+               f"addr65) in {m2['seconds']:.3f} s; launches {m2['launches']}; "
+               f"card {card}")
+
+    # --- l: two processes on the one card, joined over gloo --------------------------
+    t0 = time.monotonic()
+    procs_out = two_processes(["add", "-f", PUZZLES, "-r", "8000:ffffff",
+                               "-t", "1"])
+    two_procs_s = time.monotonic() - t0
+    sets = [r["found"] for r in procs_out]
+    launches_procs = [r["launches"] for r in procs_out]
+    for i, r in enumerate(procs_out):
+        if r["k_checked"] != 16_777_216:
+            raise AssertionError(f"process {i}: k_checked {r['k_checked']}")
+        if min(r["launches"]["hash160"], r["launches"]["inv_mod_batch"]) < 1:
+            raise AssertionError(f"process {i}: a kernel never ran: "
+                                 f"{r['launches']}")
+    if sets[0] & sets[1] or sets[0] | sets[1] != NINE_KEYS:
+        raise AssertionError(f"two processes found {sorted(map(hex, sets[0]))}"
+                             f" and {sorted(map(hex, sets[1]))}")
+    launches_two = {k: sum(lp[k] for lp in launches_procs)
+                    for k in kernels.LAUNCHES}
+    phase("l", f"two `add -r 8000:ffffff` processes over gloo on the one "
+               f"card: {len(sets[0])} + {len(sets[1])} keys, disjoint, union "
+               f"the nine; k_checked 16,777,216 in each; {two_procs_s:.3f} s "
+               f"wall for both (start-up included); launches per process "
+               f"{launches_procs}; card {card}")
+
+    # --- m: the profiler after k and l; every search width checked ------------------
+    k1_after = device_ms(timed["hash160"][0], "hash160_kernel<true>")
+    phase("m", f"hash160 at n={HASH_N} after phases k and l: kernel "
+               f"{k1_after:.4f} ms on the device (torch.profiler; phase 6: "
+               f"{t['hash160'][0]:.4f} ms)")
+    checked = {"hash160": set(hash_ns), "inv_mod_batch": set(inv_ns),
+               "mixed_add": {MUL_N, HASH_N, VERIFY_N}}
+    for name in searched:
+        searched[name] |= kernels.WIDTHS[name]
+        for r in procs_out:
+            searched[name] |= set(r["widths"][name])
+        if not searched[name] <= checked[name]:
+            raise AssertionError(f"the searches ran {name} at widths "
+                                 f"{sorted(searched[name] - checked[name])} "
+                                 f"that phases 1, 2 and a did not check")
+    phase("m", "every width the searches launched a kernel at (every phase "
+               "from 3 through 6, and k and l) was held against the plain "
+               "version: " + "; ".join(
+                   f"{k} {sorted(v)}" for k, v in searched.items()))
+
     def entry(name, key, source, replaces, **extra):
         launches = {"add": launches_add[name], "mul": launches_mul[name],
                     "rnd": launches_rnd[name],
                     "add_resume": launches_resume[name],
                     "bench": launches_bench[name],
                     "bench_gtable": launches_sweep[name],
-                    "mult_verify": launches_verify[name]}
+                    "mult_verify": launches_verify[name],
+                    "add_t_clamp": launches_clamp[name],
+                    **{k: v["launches"][name] for k, v in split_runs.items()},
+                    "add_two_processes": launches_two[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": errs[name],
@@ -925,7 +1185,11 @@ def main() -> int:
     ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
         "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
         "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,
-        "rnd_split": rnd_split, "bench_rows": rows, "bench_checks": checks,
+        "rnd_split": rnd_split, "add_s": add_s, "split_runs": split_runs,
+        "hash160_ms_after_splits": k1_after,
+        "profiler_short_windows": SHORT_WINDOWS,
+        "searched_widths": {k: sorted(v) for k, v in searched.items()},
+        "two_processes_s": two_procs_s, "bench_rows": rows, "bench_checks": checks,
         "gtable_sweep": sweep, "mult_verify": {
             "count": VERIFY_N, "w": mul.W, "seconds": verify_s, "rc": rc,
             "corrupt_rc": rc_bad}, "smoke_s": time.monotonic() - t_start}

@@ -105,6 +105,8 @@ def lib() -> ctypes.CDLL:
         cdll.ecl_inv_batch.restype = ctypes.c_int
         cdll.ecl_inv_batch_block.argtypes = []
         cdll.ecl_inv_batch_block.restype = ctypes.c_int
+        cdll.ecl_current_device.argtypes = []
+        cdll.ecl_current_device.restype = ctypes.c_int
         cdll.ecl_mixed_add.argtypes = [vp] * 7 + [ll, ctypes.c_int, vp]
         cdll.ecl_mixed_add.restype = ctypes.c_int
         _lib = cdll

@@ -6,8 +6,11 @@ Keeps the reference's flags and output (`-f -o -a -r -d -q -endo -raw
 the `-o` file; the throttled status line on stderr; 'p'/'r' pause on a
 terminal).  `-device cuda|cpu` picks the device of the searches and of
 `bench`, `bench-gtable` and `mult-verify`, `cuda` by default; without a
-GPU that is an error, never a quiet run on the CPU.  `blf-gen` and
-`blf-check` run on the host.
+GPU that is an error, never a quiet run on the CPU.  The searches run
+over every visible GPU, or `-t n` of them (with `-device cpu`, over n
+CPU shards), and over several processes when ECLOOP_COORDINATOR,
+ECLOOP_NUM_PROCS and ECLOOP_PROC_ID say so (`parallel.multihost`).
+`blf-gen` and `blf-check` run on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import time
 import torch
 
 from . import __version__, golden
+from .parallel import multihost
 
 GROUP_INV_SIZE = 2048             # reference GROUP_INV_SIZE: lowest range start
 
@@ -55,12 +59,15 @@ Options:
   -raw            - mul: private key = SHA-256 of each input line
   -seed <str>     - rnd: seed the draws of the sub-ranges (repeatable runs)
   -c <file>       - add, rnd: cursor checkpoint; resume an interrupted run
+  -t <n>          - add, mul, rnd: devices to use (default: every GPU)
   -device <dev>   - cuda (default) or cpu
 
-Batch geometry: ECLOOP_CENTERS, ECLOOP_GROUP_K, ECLOOP_STEPS_PER_CALL (add),
-ECLOOP_MUL_BATCH (mul).  bench: ECLOOP_BENCH_B, _R, _ONLY, _SOL, _VERBOSE;
+Batch geometry, per device: ECLOOP_CENTERS, ECLOOP_GROUP_K,
+ECLOOP_STEPS_PER_CALL (add, rnd), ECLOOP_MUL_BATCH (mul).  bench:
+ECLOOP_BENCH_B, _R, _ONLY, _SOL, _VERBOSE;
 bench-gtable: ECLOOP_GTABLE_WS, ECLOOP_BENCH_B; mult-verify:
-ECLOOP_VERIFY_N, ECLOOP_VERIFY_W.
+ECLOOP_VERIFY_N, ECLOOP_VERIFY_W.  Several processes (add, rnd -seed):
+ECLOOP_COORDINATOR=host:port ECLOOP_NUM_PROCS=P ECLOOP_PROC_ID=i.
 """
 
 
@@ -299,10 +306,35 @@ def select_device(args: Args) -> torch.device:
     return torch.device(name)
 
 
-def search_config(args: Args, cmd: str):
+def select_devices(args: Args) -> list[torch.device]:
+    """This process's devices: `-t n` of the visible GPUs, at least one
+    and at most all of them, or all without -t; with `-device cpu`,
+    max(n, 1) CPU shards."""
+    from .parallel.mesh import make_devices
+
+    t = args.get_uint("-t", 0)
+    if select_device(args).type == "cpu":
+        return [torch.device("cpu")] * max(t, 1)
+    gpus = make_devices()
+    return gpus[:min(max(t, 1), len(gpus))] if t else gpus
+
+
+def search_devices(args: Args):
+    """(devices, owned): the search's global device list and the shards
+    this process runs (None: all of them, in a single process)."""
+    local = select_devices(args)
+    if multihost.process_count() == 1:
+        return local, None
+    return multihost.global_devices(local)
+
+
+def search_config(args: Args, cmd: str, n_devices: int = 1):
     """Filter, SearchConfig, Status and the -d (offs, size) from the
     command line, with the reference's startup echo; `rnd` without -d
-    draws its offset from the -seed Rng."""
+    draws its offset from the -seed Rng.  Over n devices `add` and `rnd`
+    step n times the centers (ECLOOP_CENTERS is per device), as `mul`'s
+    job is n times its batch, so each device runs the one-device
+    geometry."""
     from . import filters
     from .search.common import SearchConfig
     from .search.rnd import Rng
@@ -336,12 +368,14 @@ def search_config(args: Args, cmd: str):
     cfg.group_k = int(os.environ.get("ECLOOP_GROUP_K", cfg.group_k))
     cfg.steps_per_call = int(os.environ.get("ECLOOP_STEPS_PER_CALL",
                                             cfg.steps_per_call))
+    if cmd != "mul":
+        cfg.centers *= n_devices
 
     status = Status(quiet, outfile, use_color=sys.stdout.isatty())
     filt_desc = (f"list ({_fmt_n(filt.count)})" if filt.mode == "list"
                  else "bloom")
-    print(f"devices: 1 ~ addr33: {int(addr33)} ~ addr65: {int(addr65)} "
-          f"~ endo: {int(endo)} | filter: {filt_desc}")
+    print(f"devices: {n_devices} ~ addr33: {int(addr33)} ~ addr65: "
+          f"{int(addr65)} ~ endo: {int(endo)} | filter: {filt_desc}")
     if cmd == "add":
         print(f"range_s: {range_s:064x}")
         print(f"range_e: {range_e:064x}")
@@ -350,18 +384,27 @@ def search_config(args: Args, cmd: str):
 
 
 def open_checkpoint(args: Args, cmd: str, cfg, seed: str | None = None):
-    """The -c checkpoint of this search and whether it holds a position
-    to resume from; (None, False) without -c.  A file of another search
-    is an error."""
+    """(ckpt, position, k_checked, k_found): the -c checkpoint of this
+    search and the state to resume from (the cursor of `add`, the
+    finished iterations of `rnd`), agreed by every process of the run;
+    (None, 0, 0, 0) without -c.  A file that does not load, or belongs
+    to another search, is an error, in every process of the run."""
     from . import checkpoint
 
     path = args.get_str("-c")
     if not path:
-        return None, False
+        return None, 0, 0, 0
     key = checkpoint.config_key_for(cmd, cfg, args.get_str("-f"), seed=seed)
+    ckpt, state, error = None, (0, 0, 0), None
     try:
         ckpt = checkpoint.Checkpoint(checkpoint.process_local_path(path), key)
-        return ckpt, ckpt.try_resume()
+        if ckpt.try_resume():
+            state = (int(ckpt.cursor or 0) if cmd == "add" else ckpt.iters,
+                     ckpt.k_checked, ckpt.k_found)
+    except Exception as e:        # still reach the gather, or peers wait
+        error = str(e) or type(e).__name__
+    try:
+        return (ckpt, *checkpoint.reconcile_multihost(*state, error=error))
     except ValueError as e:
         _die(str(e))
 
@@ -371,7 +414,7 @@ class SearchRun:
     found: list
     k_checked: int
     seconds: float                   # host clock around the search
-    device: torch.device
+    device: torch.device             # the first of the search's devices
 
 
 def run_add(args: Args) -> SearchRun:
@@ -379,17 +422,12 @@ def run_add(args: Args) -> SearchRun:
     resumes), report finds, return them with the claim-based key count."""
     from .search.add import AddSearch
 
-    device = select_device(args)
-    cfg, filt, status, _ = search_config(args, "add")
-    ckpt, resumed = open_checkpoint(args, "add", cfg)
-    start_offset = 0
-    if resumed:
-        start_offset = int(ckpt.cursor or 0)
-        status.k_found = ckpt.k_found
-        if start_offset:
-            print(f"resuming from checkpoint: offset "
-                  f"{_fmt_n(start_offset)} keys")
-    eng = AddSearch(cfg, filt, device)
+    devices, owned = search_devices(args)
+    cfg, filt, status, _ = search_config(args, "add", len(devices))
+    ckpt, start_offset, _, status.k_found = open_checkpoint(args, "add", cfg)
+    if start_offset:
+        print(f"resuming from checkpoint: offset {_fmt_n(start_offset)} keys")
+    eng = AddSearch(cfg, filt, devices, owned)
     mult = 6 if cfg.endo else 1
 
     def on_step(done_keys):
@@ -415,33 +453,35 @@ def run_add(args: Args) -> SearchRun:
             ckpt.save(force=True)
         status.finish()
     return SearchRun(found=found, k_checked=eng.k_checked, seconds=seconds,
-                     device=device)
+                     device=devices[0])
 
 
 def run_rnd(args: Args) -> SearchRun:
     """The `rnd` command: search random sub-ranges until a draw covers
     the whole range (forever otherwise), with the range masks before and
     a `found / checked ~ s` line after each.  With -c, a seeded run
-    resumes at the iteration after the last one saved."""
+    resumes at the iteration after the last one saved.  Several processes
+    need -seed, or each would draw its own sub-ranges and cover each
+    only in part."""
     from .search.rnd import RndSearch, format_range_mask
 
-    device = select_device(args)
-    cfg, filt, status, (offs, size) = search_config(args, "rnd")
     seed = args.get_str("-seed")
-    eng = RndSearch(cfg, filt, device, seed=seed, offs=offs, size=size)
+    if seed is None and multihost.process_count() > 1:
+        _die("rnd over several processes needs -seed: every process must "
+             "draw the same sub-ranges")
+    devices, owned = search_devices(args)
+    cfg, filt, status, (offs, size) = search_config(args, "rnd", len(devices))
+    eng = RndSearch(cfg, filt, devices, seed=seed, offs=offs, size=size,
+                    owned=owned)
     print(f"[random mode] offs: {eng.offs} ~ bits: {eng.size}\n")
 
-    ckpt, resumed = open_checkpoint(args, "rnd", cfg, seed)
-    skip_iters = 0
-    if resumed:
-        skip_iters = ckpt.iters
-        status.k_found = ckpt.k_found
-        status.k_checked = ckpt.k_checked
-        if skip_iters:
-            print(f"resuming from checkpoint: iteration {skip_iters}")
-            if seed is None:
-                print("note: unseeded rnd draws fresh ranges; the "
-                      "checkpoint only restores counters", file=sys.stderr)
+    ckpt, skip_iters, status.k_checked, status.k_found = open_checkpoint(
+        args, "rnd", cfg, seed)
+    if skip_iters:
+        print(f"resuming from checkpoint: iteration {skip_iters}")
+        if seed is None:
+            print("note: unseeded rnd draws fresh ranges; the "
+                  "checkpoint only restores counters", file=sys.stderr)
 
     def on_range(lo, hi):
         print(format_range_mask(lo, eng.offs, eng.size, status.use_color))
@@ -478,7 +518,7 @@ def run_rnd(args: Args) -> SearchRun:
         seconds = time.monotonic() - t0
         status.finish()
     return SearchRun(found=found, k_checked=status.k_checked,
-                     seconds=seconds, device=device)
+                     seconds=seconds, device=devices[0])
 
 
 def run_blf_gen(args: Args, text: str) -> int:
@@ -541,18 +581,23 @@ def run_blf_check(args: Args, lines) -> int:
 
 def run_mul(args: Args, lines) -> SearchRun:
     """The `mul` command over an iterable of key lines (stdin): jobs of
-    ECLOOP_MUL_BATCH keys (32,768 on the GPU, 2,048 on the CPU) stay
-    queued on the device while the next lines are read; the status line
-    counts drained keys."""
+    ECLOOP_MUL_BATCH keys per device (32,768 on the GPU, 2,048 on the
+    CPU) stay queued on the devices while the next lines are read; the
+    status line counts drained keys.  One process only: its keys come
+    from its own stdin."""
     from .search import mul
 
-    device = select_device(args)
-    cfg, filt, status, _ = search_config(args, "mul")
+    if multihost.process_count() > 1:
+        _die("mul runs in one process (over all of its devices, -t): "
+             "unset ECLOOP_COORDINATOR and split the key list instead")
+    devices = select_devices(args)
+    cfg, filt, status, _ = search_config(args, "mul", len(devices))
     batch = os.environ.get("ECLOOP_MUL_BATCH",
-                           "32768" if device.type == "cuda" else "2048")
+                           "32768" if devices[0].type == "cuda" else "2048")
     if not batch.isdigit() or int(batch) < 32 or int(batch) % 32:
         _die(f"ECLOOP_MUL_BATCH={batch}: must be a positive multiple of 32")
-    eng = mul.MulSearch(cfg, filt, device, w=mul.W, batch=int(batch),
+    eng = mul.MulSearch(cfg, filt, devices, w=mul.W,
+                        batch=int(batch) * len(devices),
                         raw=args.get_bool("-raw"))
     found = []
 
@@ -579,7 +624,7 @@ def run_mul(args: Args, lines) -> SearchRun:
         status.update(eng.k_checked - status.k_checked)
         status.finish()
     return SearchRun(found=found, k_checked=eng.k_checked, seconds=seconds,
-                     device=device)
+                     device=devices[0])
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -587,6 +632,21 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv if argv is None else argv)
     args = Args(argv)
     cmd = argv[1] if len(argv) > 1 else None
+    try:
+        several = multihost.init_from_env()
+    except ValueError as e:
+        _die(str(e))
+    try:
+        if several:
+            print(multihost.process_banner(len(select_devices(args))),
+                  file=sys.stderr)
+        return run_command(cmd, args, argv)
+    finally:
+        multihost.leave()
+
+
+def run_command(cmd: str | None, args: Args, argv: list[str]) -> int:
+    """Dispatch one command of the command line; its exit code."""
     if cmd == "add":
         run_add(args)
         return 0

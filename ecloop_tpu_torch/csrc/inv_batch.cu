@@ -165,3 +165,13 @@ extern "C" int ecl_inv_batch(const void* x, void* out, long long n, void* stream
 
 // Elements per block, for tests that place zeros on block edges.
 extern "C" int ecl_inv_batch_block(void) { return PER_BLOCK; }
+
+// The device this library's CUDA runtime holds current for the calling
+// thread, or -1 when it cannot tell.  The library links nvcc's static
+// runtime, which is not PyTorch's; the wrappers compare this with the
+// tensor's device before every launch, so a launch that would land on
+// another card than its data fails instead.
+extern "C" int ecl_current_device(void) {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
+}

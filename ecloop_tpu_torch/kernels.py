@@ -6,10 +6,12 @@
   K3  proj_add_affine                      -> csrc/mixed_add.cu
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
-tensor launches the kernel on the current stream, or raises.  Every
-wrapper checks device, dtype, shape and contiguity first, allocates its
-outputs with torch.empty and raises when the launch reports an error.
-LAUNCHES counts the launches of each kernel.
+tensor launches the kernel on its device's current stream, or raises.
+Every wrapper checks device, dtype, shape and contiguity first,
+allocates its outputs with torch.empty and raises when the launch
+reports an error or would run on another device than its data.
+LAUNCHES counts the launches of each kernel, and WIDTHS gathers the
+widths (elements per launch) they ran at until its caller clears it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from . import _build, ecc, fel, hash160
 
 NLIMBS = 16
 LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0}
+WIDTHS = {k: set() for k in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -48,8 +51,19 @@ def _check_same(ref: torch.Tensor, **named) -> None:
                              f"{tuple(ref.shape)}@{ref.device}")
 
 
-def _launch(fn, *args) -> None:
-    rc = getattr(_build.lib(), fn)(*args)
+def _launch(fn, device: torch.device, *args) -> None:
+    """Call the library's launcher `fn` on `device`'s current stream
+    (the last argument), with `device` current.  The library's own CUDA
+    runtime must agree that `device` is current, or the launch raises
+    before it could run on another card than its data."""
+    lib = _build.lib()
+    with torch.cuda.device(device):
+        cur = lib.ecl_current_device()
+        if cur != device.index:
+            raise RuntimeError(f"{fn}: the kernel library's current device "
+                               f"is {cur}, the data is on {device}")
+        rc = getattr(lib, fn)(*args,
+                             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
 
@@ -64,11 +78,10 @@ def _hash_rows(x: torch.Tensor, y: torch.Tensor, is33: bool) -> torch.Tensor:
     out = torch.empty((5,) + x.shape[1:], dtype=torch.int64, device=x.device)
     n = x[0].numel()
     if n:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _launch("ecl_hash160", x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                    n, int(is33), stream)
+        _launch("ecl_hash160", x.device, x.data_ptr(), y.data_ptr(),
+                out.data_ptr(), n, int(is33))
         LAUNCHES["hash160"] += 1
+        WIDTHS["hash160"].add(n)
     return out
 
 
@@ -92,11 +105,9 @@ def inv_mod_batch(x: torch.Tensor) -> torch.Tensor:
     n = x[0].numel()
     out = torch.empty_like(x)
     if n:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _launch("ecl_inv_batch", x.data_ptr(), out.data_ptr(), n,
-                    stream)
+        _launch("ecl_inv_batch", x.device, x.data_ptr(), out.data_ptr(), n)
         LAUNCHES["inv_mod_batch"] += 1
+        WIDTHS["inv_mod_batch"].add(n)
     return out
 
 
@@ -132,10 +143,9 @@ def proj_add_affine(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
     out = torch.empty((3,) + qx.shape, dtype=torch.int64, device=qx.device)
     n = qx[0].numel()
     if n:
-        with torch.cuda.device(qx.device):
-            stream = torch.cuda.current_stream(qx.device).cuda_stream
-            _launch("ecl_mixed_add", qx.data_ptr(), qy.data_ptr(),
-                    qz.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                    skip.data_ptr(), out.data_ptr(), n, int(complete), stream)
+        _launch("ecl_mixed_add", qx.device, qx.data_ptr(), qy.data_ptr(),
+                qz.data_ptr(), gx.data_ptr(), gy.data_ptr(), skip.data_ptr(),
+                out.data_ptr(), n, int(complete))
         LAUNCHES["mixed_add"] += 1
+        WIDTHS["mixed_add"].add(n)
     return out[0], out[1], out[2]

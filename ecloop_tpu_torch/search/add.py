@@ -14,6 +14,7 @@ Key layout per step t (stride s = 2^offs, h = K/2):
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from .. import bloom, ecc, fel, golden, kernels
 from ..filters import Filter
+from ..parallel import mesh
 from . import common
 from .common import Found, SearchConfig
 
@@ -177,17 +179,64 @@ def make_step(cfg: SearchConfig, filt: Filter, device):
     return step
 
 
-class RangeDriver:
-    """Reference `add` semantics over [range_s, range_e): claim planning,
-    coverage rounding and counter accounting (cmd_add / cmd_add_worker,
-    main.c:405-454); subclasses provide run_span()."""
+class AddShard:
+    """One device's block of every step's centers: the M' = local_cfg's
+    centers of global index [index*M', (index+1)*M'), stepped with
+    `make_step` at M' centers.  The table and the advance point are the
+    whole geometry's (`cfg`): every center advances by the global
+    M*K*s*G, or the blocks would overlap and leave keys unsearched.  A
+    step's hit bit j is the key at offset `offset` + j within the step."""
 
-    cfg: SearchConfig
-    k_checked: int
+    def __init__(self, index: int, device, cfg: SearchConfig,
+                 local_cfg: SearchConfig, filt: Filter):
+        self.device = torch.device(device)
+        self.centers = slice(index * local_cfg.centers,
+                             (index + 1) * local_cfg.centers)
+        self.offset = index * local_cfg.keys_per_step
+        self.step_fn = make_step(local_cfg, filt, self.device)
+        self.table = tuple(fel.from_last(a, self.device) for a in _cached_table(
+            cfg.stride, cfg.group_k, cfg.keys_per_step))
+        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
 
-    def run_span(self, base, n_keys, hit_offsets_valid, on_found=None,
-                 on_step=None):
-        raise NotImplementedError
+    def step(self, cx: torch.Tensor, cy: torch.Tensor):
+        """(cx, cy) -> (cx', cy', masks) for this block's centers."""
+        return self.step_fn(cx, cy, *self.table, self.bits)
+
+
+class AddSearch:
+    """The `add` engine over one device or a list of n (reference
+    cmd_add / cmd_add_worker, main.c:405-454): claim planning, coverage
+    rounding and counter accounting over [range_s, range_e), the
+    `AddShard`s that step the keys, and the host's handling of their hit
+    masks.
+
+    Shard d of n advances the global centers [d*M/n, (d+1)*M/n), so its
+    hit in step t, bit j is the key at flat offset t*M*K + d*(M/n)*K + j:
+    the key layout, and so the found set and the key count, do not
+    depend on n.  `owned` holds the shard indices this process runs (all
+    by default; `parallel.multihost`).  The counters are claim-based, so
+    every process counts the whole range."""
+
+    def __init__(self, cfg: SearchConfig, filt: Filter, devices,
+                 owned=None):
+        devices = mesh.make_devices(devices)
+        n = len(devices)
+        if n < 1 or cfg.centers % n:
+            raise ValueError(f"centers ({cfg.centers}) must divide over "
+                             f"{n} devices")
+        local = dataclasses.replace(cfg, centers=cfg.centers // n)
+        if local.keys_per_step % 32:
+            raise ValueError(f"a shard's {local.keys_per_step} keys per step "
+                             f"(centers {local.centers} x group_k "
+                             f"{cfg.group_k}) must be a multiple of 32")
+        self.cfg = cfg
+        self.filt = filt
+        self.devices = devices
+        self.variants = _variants(cfg)
+        self.shards = [AddShard(d, devices[d], cfg, local, filt)
+                       for d in mesh.owned_shards(owned, n)]
+        self.k_checked = 0
+        self.k_found = 0
 
     def run_range(self, on_found=None, on_step=None, start_offset: int = 0,
                   range_s: int | None = None,
@@ -224,73 +273,76 @@ class RangeDriver:
             on_step=(lambda done: on_step(start_offset + done))
             if on_step else None)
 
-
-class AddSearch(RangeDriver):
-    """Single-device add-mode engine."""
-
-    def __init__(self, cfg: SearchConfig, filt: Filter, device):
-        self.cfg = cfg
-        self.filt = filt
-        self.device = torch.device(device)
-        self.step_fn = make_step(cfg, filt, self.device)
-        self.variants = _variants(cfg)
-        self.table = tuple(fel.from_last(a, self.device) for a in _cached_table(
-            cfg.stride, cfg.group_k, cfg.keys_per_step))
-        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
-        self.k_checked = 0
-        self.k_found = 0
+    def shard_centers(self, base: int) -> list[tuple[torch.Tensor, ...]]:
+        """The (16, M') x and y limbs of each shard's first centers for
+        a span from `base`, on the shard's device."""
+        cx, cy = center_points(self.cfg, base)
+        return [(fel.from_last(cx[s.centers], s.device),
+                 fel.from_last(cy[s.centers], s.device)) for s in self.shards]
 
     def run_span(self, base: int, n_keys: int, hit_offsets_valid,
                  on_found=None, on_step=None) -> list[Found]:
         """Search keys base + i*stride for i in [0, n_keys); a hit at
         offset i counts only where hit_offsets_valid(i) holds.
 
-        Each call of steps_per_call steps ends with an asynchronous copy of
-        its masks into pinned host memory; that call's masks are drained
-        only after the next call's steps are queued, so the host's hit
-        handling overlaps the device's work."""
+        Each call queues the steps_per_call steps of every shard, then
+        starts an asynchronous copy of each shard's masks into pinned
+        host memory; that call's masks are drained only after the next
+        call's steps are queued, so the host's hit handling overlaps the
+        devices' work."""
         cfg = self.cfg
         mk = cfg.keys_per_step
         t_ = max(1, cfg.steps_per_call)
         calls = -(-(-(-n_keys // mk)) // t_)
         check_no_degenerate(cfg, base, calls * t_ * mk)
-        cx, cy = (fel.from_last(a, self.device)
-                  for a in center_points(cfg, base))
+        state = self.shard_centers(base)
         found = []
         pending = None
         for c in range(calls):
-            masks = []
-            for _ in range(t_):
-                cx, cy, m = self.step_fn(cx, cy, *self.table, self.bits)
-                masks.append(m)
-            fetch = common.fetch_async(torch.stack(masks))
+            fetches = []
+            for i, shard in enumerate(self.shards):
+                cx, cy = state[i]
+                masks = []
+                for _ in range(t_):
+                    cx, cy, m = shard.step(cx, cy)
+                    masks.append(m)
+                state[i] = (cx, cy)
+                fetches.append((shard.offset,
+                                common.fetch_async(torch.stack(masks))))
             if pending is not None:
-                found.extend(self._drain(pending, base, n_keys,
+                found.extend(self._drain(*pending, base, n_keys,
                                          hit_offsets_valid, on_found, on_step))
-            pending = (c * t_, fetch)
+            pending = (c * t_, fetches)
         if pending is not None:
-            found.extend(self._drain(pending, base, n_keys,
+            found.extend(self._drain(*pending, base, n_keys,
                                      hit_offsets_valid, on_found, on_step))
         return found
 
-    def _drain(self, pending, base, n_keys, hit_offsets_valid, on_found,
-               on_step):
-        t0, fetch = pending
-        masks_np = common.fetched(fetch)
+    def _drain(self, t0, fetches, base, n_keys, hit_offsets_valid, on_found,
+               on_step) -> list[Found]:
+        """Handle the hits of one call's steps t0, t0+1, ...: `fetches`
+        holds, per shard of a step's keys, the shard's first key offset
+        within the step and the `fetch_async` handle of its (steps, V,
+        words) masks.  Steps go in order, shards in the order given;
+        on_step follows each step."""
+        planes = [(off, common.fetched(f)) for off, f in fetches]
         mk = self.cfg.keys_per_step
         out = []
-        for tt in range(masks_np.shape[0]):
+        for tt in range(planes[0][1].shape[0]):
             t = t0 + tt
-            if masks_np[tt].any():
-                out.extend(self._handle_hits(base, t * mk, n_keys,
-                                             masks_np[tt], hit_offsets_valid,
-                                             on_found))
+            for off, masks_np in planes:
+                if masks_np[tt].any():
+                    out.extend(self._handle_hits(
+                        base, t * mk + off, n_keys, masks_np[tt],
+                        hit_offsets_valid, on_found))
             if on_step:
                 on_step(min((t + 1) * mk, n_keys))
         return out
 
     def _handle_hits(self, base, step_off, n_keys, masks_np,
                      hit_offsets_valid, on_found) -> list[Found]:
+        """Confirm and re-derive the hits of (V, words) masks whose bit j
+        is the key at offset step_off + j."""
         out = []
         for v, (e, is33) in enumerate(self.variants):
             for j in np.nonzero(unpack_mask(masks_np[v]))[0]:
@@ -311,3 +363,4 @@ class AddSearch(RangeDriver):
                 if on_found:
                     on_found(f)
         return out
+

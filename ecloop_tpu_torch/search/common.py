@@ -34,14 +34,15 @@ def derive_h160(priv: int, is33: bool) -> str:
 
 def fetch_async(t: torch.Tensor):
     """Start copying `t` (hit masks) into pinned host memory on the
-    current stream; `fetched()` waits for the copy.  A CPU tensor is
-    its own copy."""
+    current stream of `t`'s device; `fetched()` waits for the copy.  The
+    copy runs on that device's stream whichever device is current, so
+    the event is recorded there too.  A CPU tensor is its own copy."""
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(t.device))
     return host, done
 
 

@@ -26,6 +26,7 @@ import torch
 
 from .. import bloom, ecc, fel, golden, kernels
 from ..filters import Filter
+from ..parallel import mesh
 from . import common
 from .add import pack_mask, unpack_mask
 from .common import Found, SearchConfig
@@ -251,37 +252,71 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy -> `device`, through pinned memory and an asynchronous copy
-    on the current stream for a CUDA device."""
+    on `device`'s current stream (whichever device is current), where
+    the step that reads it runs too."""
     t = torch.from_numpy(a)
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
 
+class MulShard:
+    """One device's block of every job: the table, the filter bits and
+    the step at the block's width, on its device."""
+
+    def __init__(self, device, cfg: SearchConfig, filt: Filter, w: int,
+                 batch: int):
+        self.device = torch.device(device)
+        self.txy = build_gtable(w, self.device)
+        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
+        self.step_fn = make_mul_step(cfg, filt, w, batch, self.device)
+
+    def launch(self, dig: np.ndarray):
+        """Queue the step on the block's (d, batch) digits; returns the
+        `common.fetch_async` handle of its (V, batch/32) masks."""
+        return common.fetch_async(self.step_fn(_upload(dig, self.device),
+                                               self.txy, self.bits))
+
+
 class MulSearch:
-    """Key-list search engine (reference cmd_mul).
+    """Key-list search engine (reference cmd_mul) over one device or a
+    list of n.
 
-    Keys go to the device in jobs of `batch`; up to INFLIGHT jobs stay
-    queued while the host cuts the next job's digits, and each job's
-    masks come back through pinned memory (common.fetch_async)."""
+    Keys go to the devices in jobs of `batch`: key j of a job on shard
+    j // (batch/n), so the found set is the one-device engine's.  Up to
+    INFLIGHT jobs stay queued while the host cuts the next job's digits,
+    and each job's masks come back through pinned memory
+    (common.fetch_async)."""
 
-    def __init__(self, cfg: SearchConfig, filt: Filter, device, w: int = W,
+    def __init__(self, cfg: SearchConfig, filt: Filter, devices, w: int = W,
                  batch: int = 32768, raw: bool = False):
-        if batch < 32 or batch % 32:
-            raise ValueError(f"batch {batch}: must be a positive multiple of 32")
+        devices = mesh.make_devices(devices)
+        n = len(devices)
+        if n < 1 or batch < 32 * n or batch % (32 * n):
+            raise ValueError(f"mul batch ({batch}) must divide over {n} "
+                             f"devices into blocks of a multiple of 32")
         self.cfg = cfg
         self.filt = filt
-        self.device = torch.device(device)
         self.w = w
         self.batch = batch
         self.raw = raw
         self.labels = _labels(cfg)
-        self.txy = build_gtable(w, self.device)
-        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
-        self.step_fn = make_mul_step(cfg, filt, w, batch, self.device)
+        self.devices = devices
+        self.shards = [MulShard(d, cfg, filt, w, batch // n) for d in devices]
         self.k_checked = 0
         self.k_found = 0
         self._pending = collections.deque()
+
+    def _launch(self, dig: np.ndarray) -> list:
+        """Queue one job from its (d, batch) digits, each shard's block on
+        its device; returns the shards' mask handles."""
+        b = self.batch // len(self.shards)
+        return [s.launch(np.ascontiguousarray(dig[:, i * b:(i + 1) * b]))
+                for i, s in enumerate(self.shards)]
+
+    def _masks(self, handles: list) -> np.ndarray:
+        """The job's (V, batch/32) host masks, the shards' in key order."""
+        return np.concatenate([common.fetched(h) for h in handles], axis=1)
 
     def run_keys(self, keys: list[int], on_found=None,
                  drain: bool = True) -> list[Found]:
@@ -312,9 +347,7 @@ class MulSearch:
             # infinity and are dropped by _handle_hits
             dig = np.zeros((d, self.batch), dtype=np.int32)
             dig[:, :len(job)] = window_digits_words(job, self.w).T
-            masks = self.step_fn(_upload(dig, self.device), self.txy,
-                                 self.bits)
-            self._pending.append((job, common.fetch_async(masks), on_found))
+            self._pending.append((job, self._launch(dig), on_found))
             while len(self._pending) > INFLIGHT:
                 found.extend(self._drain_one())
         if drain:
@@ -329,8 +362,8 @@ class MulSearch:
         return found
 
     def _drain_one(self) -> list[Found]:
-        job, fetch, on_found = self._pending.popleft()
-        found = self._handle_hits(job, common.fetched(fetch), on_found)
+        job, handle, on_found = self._pending.popleft()
+        found = self._handle_hits(job, self._masks(handle), on_found)
         self.k_checked += len(job)
         return found
 

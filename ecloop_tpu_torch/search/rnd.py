@@ -1,5 +1,5 @@
 """`rnd` mode: repeated `add` searches over random bit-window sub-ranges
-(the port of `ecloop_tpu.search.rnd`, one device).
+(the port of `ecloop_tpu.search.rnd`).
 
 Each iteration draws a base in [range_s, range_e], clears the `size`
 bits at `offs` for the sub-range start and sets them for its end,
@@ -88,18 +88,20 @@ def format_range_mask(value: int, offs: int, size: int, color: bool) -> str:
 
 
 class RndSearch:
-    """Random-window search driver over one `AddSearch` engine, which
-    serves every sub-range through `run_range`'s range override."""
+    """Random-window search driver over one `AddSearch` on `devices` (a
+    device or a list, of which this process runs the shards in `owned`,
+    all by default), which serves every sub-range through `run_range`'s
+    range override."""
 
-    def __init__(self, cfg: SearchConfig, filt: Filter, device,
+    def __init__(self, cfg: SearchConfig, filt: Filter, devices,
                  seed: str | None = None, offs: int | None = None,
-                 size: int | None = None):
+                 size: int | None = None, owned=None):
         self.cfg = cfg
         self.rng = Rng(seed)
         self.offs, self.size = default_offs_size(
             cfg.range_e, offs, size, self.rng, is_rnd=True)
         self.offs = min(self.offs, 255 - self.size)
-        self.engine = AddSearch(cfg, filt, device)
+        self.engine = AddSearch(cfg, filt, devices, owned)
 
     def run(self, max_iters: int | None = None, on_found=None,
             on_iter=None, on_range=None, skip_iters: int = 0) -> list[Found]:

@@ -204,3 +204,56 @@ def test_window_scan_gives_the_mul_steps_masks(dev):
     assert torch.equal(masks, want)
     got = list(zip(fel.tensor_to_ints(ax[:, :8]), fel.tensor_to_ints(ay[:, :8])))
     assert got == [golden.point_mul(k) for k in keys[:8]]
+
+
+def _sharded_add_parity(devices):
+    """A sharded `add` over `devices` against `AddSearch` on the first:
+    the same found set and key count on a range with planted keys, and
+    the same step masks joined in shard order."""
+    targets = [0x70005, 0x702A0, 0x707F0]
+    filt = filters.filter_from_hashes(np.stack([np.frombuffer(
+        golden.addr33(golden.point_mul(k)), dtype=">u4").astype(np.uint32)
+        for k in targets]))
+    cfg = SearchConfig(range_s=0x70000, range_e=0x70800, centers=8,
+                       group_k=256)
+    single = add.AddSearch(cfg, filt, devices[0])
+    sharded = add.AddSearch(cfg, filt, devices)
+    kernels.reset_launches()
+    got = {(f.label, f.priv) for f in sharded.run_range()}
+    assert min(kernels.LAUNCHES["hash160"],
+               kernels.LAUNCHES["inv_mod_batch"]) >= len(devices)
+    assert got == {(f.label, f.priv) for f in single.run_range()} == {
+        ("addr33", k) for k in targets}
+    assert sharded.k_checked == single.k_checked == 0x800
+    cx, cy = (fel.from_last(a, devices[0])
+              for a in add.center_points(cfg, 0x70000))
+    want = single.shards[0].step(cx, cy)[2]
+    masks = [s.step(*c)[2].to(devices[0]) for s, c in
+             zip(sharded.shards, sharded.shard_centers(0x70000))]
+    assert torch.equal(torch.cat(masks, dim=1), want)
+
+
+def test_sharded_add_on_one_card(dev):
+    _sharded_add_parity([dev, dev])
+
+
+def test_sharded_add_over_two_cards():
+    """Shards on cuda:0 and cuda:1 with cuda:0 current: every wrapper
+    launches on its data's card (the kernel library's runtime follows
+    torch's current device), and the masks of cuda:1 come back through
+    an event recorded on cuda:1's stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    from ecloop_tpu_torch.search import common
+
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(d0)
+    x, y = _limbs(4096, 1, d1), _limbs(4096, 2, d1)
+    assert torch.equal(kernels.addr33_hash_rows(x, y).cpu(),
+                       hash160.addr33_hash_rows(x.cpu(), y.cpu()))
+    assert torch.equal(kernels.inv_mod_batch(x).cpu(),
+                       fel.inv_mod_batch(x.cpu()))
+    host, done = common.fetch_async(x)
+    assert done.device == d1
+    assert np.array_equal(common.fetched((host, done)), x.cpu().numpy())
+    _sharded_add_parity([d0, d1])
