@@ -24,6 +24,13 @@ disjoint halves of the nine keys (phases k and l); K1 is timed once
 more after them.  Phases 1, 2 and a check every width (elements per
 launch) that the searches launch a kernel at, the shards' included, and
 the script fails if a search ran a kernel at a width they did not check.
+On the card every search call runs from one CUDA graph per shard
+(`ecloop_tpu_torch/graphs.py`): phase n holds the `add` call (T = 8
+steps at 32 x 4096 in list, pow2, bloom and -endo modes, and at
+512 x 4096) and one 32,768-key `mul` job against the eager steps bit
+for bit and times both (capture, replay wall, device time, busy share,
+keys/s); phases n and k fail if a kernel launches outside a replay, and
+phase o that a body the card cannot capture (a host sync) raises.
 Each phase prints one line or more; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -32,6 +39,7 @@ device it exits with 2 and prints no result.
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -71,6 +79,7 @@ SPLITS = (("add_one_device", 1, 0xFFFFFF, False),
           ("add_sharded", 2, 0xFFFFFF, False),
           ("add_sharded_endo", 4, 0xFFFF, True))
 TWO_PROCS = 2            # phase l: processes of one device each
+WIDE_CENTERS = 512       # phase n: the wide `add` geometry (512 x 4096)
 PROFILE_TRIES = 8        # profiler windows per device time (device_ms), and
 PROFILE_PAUSE_S = 1.0    # the pause after a short one
 SHORT_WINDOWS = []       # the short windows' messages, for the report
@@ -321,13 +330,10 @@ def mul_run(cli, kernels, lines):
 
 
 def mul_breakdown(lines, dev) -> dict:
-    """Where a `mul` job's time goes: the host parse of the lines, the
-    engine over parsed words (host clock, synchronized), and one job's
-    device time and device op count from torch.profiler over 4 steps."""
-    import numpy as np
+    """Where a `mul` run's time goes: the host parse of the lines and the
+    engine over parsed words (host clock, synchronized).  One job's
+    device time is phase n's."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from ecloop_tpu_torch import filters
     from ecloop_tpu_torch.search import mul
     from ecloop_tpu_torch.search.common import SearchConfig
@@ -344,27 +350,111 @@ def mul_breakdown(lines, dev) -> dict:
         raise AssertionError("mul engine: the vector keys were not all found")
     torch.cuda.synchronize()
     engine_s = time.monotonic() - t0
-    dig = np.zeros((mul.n_windows(eng.w), MUL_N), dtype=np.int32)
-    dig[:] = mul.window_digits_words(words[:MUL_N], eng.w).T
-    dig = torch.from_numpy(dig).to(dev)
-    steps = 4
-    shard = eng.shards[0]
-    shard.step_fn(dig, shard.txy, shard.bits)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(steps):
-            shard.step_fn(dig, shard.txy, shard.bits)
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3 / steps
     return {"parse_s": parse_s, "engine_s": engine_s,
-            "engine_keys_per_s": len(words) / engine_s,
-            "step_wall_ms_profiled": wall_s * 1e3 / steps,
-            "step_device_ms": device_ms, "device_ops_per_step": len(dev_ev) / steps,
-            "busy_share": device_ms / (wall_s * 1e3 / steps)}
+            "engine_keys_per_s": len(words) / engine_s}
+
+
+@contextlib.contextmanager
+def no_direct_launches(kernels, what: str):
+    """Fail if a kernel wrapper launches inside the block: on the card
+    the engines' kernels run only from graph replays."""
+    direct = []
+    launch = kernels._launch
+
+    def counted(fn, *args):
+        direct.append(fn)
+        return launch(fn, *args)
+    kernels._launch = counted
+    try:
+        yield
+    finally:
+        kernels._launch = launch
+    if direct:
+        raise AssertionError(f"{what}: {len(direct)} kernel launches outside "
+                             f"a graph replay ({collections.Counter(direct)})")
+
+
+def kernel_time(run) -> tuple[float | None, int, dict]:
+    """Device ms and device op count of one run() from torch.profiler's
+    CUDA events (kernels, copies, fills; not the user annotations that
+    span a whole profiler step on the device's track), in a window after
+    a warm-up window, and the most costly names ({name: [count, ms]});
+    (None, 0, {}) when the profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    windows = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: windows.append(p.events())) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in (windows[-1] if windows else [])
+          if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    if not ev:
+        return None, 0, {}
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in ev:
+        by_name[e.name[:60]][0] += 1
+        by_name[e.name[:60]][1] += e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6])
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev), top
+
+
+def call_figures(run, steps: int, keys: int, reps: int) -> dict:
+    """run() runs `steps` steps of `keys` keys.  Per step: the host wall
+    over `reps` runs (synchronized), the CUDA-event time of the same
+    runs, the profiler's device time and device ops (one run), the busy
+    share (device / wall) and keys/s."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * steps)
+    dev_ms, ops, top = kernel_time(run)
+    dev_ms = None if dev_ms is None else dev_ms / steps
+    return {"wall_ms": wall_ms,
+            "events_ms": start.elapsed_time(end) / (reps * steps),
+            "device_ms": dev_ms, "device_ops": ops / steps,
+            "busy_share": None if dev_ms is None else dev_ms / wall_ms,
+            "keys_per_s": keys / wall_ms * 1e3, "top_device_ops": top}
+
+
+def in_turns(a, b) -> tuple[dict, dict]:
+    """call_figures of a and b taken in turns (a, b, b, a) after one of a
+    thrown away (the first window after the eager checks read up to 20%
+    slower, whichever form ran in it): the mean of each figure, and each
+    run's wall under wall_ms_runs."""
+    a()
+    runs = [a(), b(), b(), a()]
+    out = []
+    for x, y in ((runs[0], runs[3]), (runs[1], runs[2])):
+        m = {k: (None if x[k] is None or y[k] is None else (x[k] + y[k]) / 2)
+             for k in x if k != "top_device_ops"}
+        m["top_device_ops"] = x["top_device_ops"]
+        m["wall_ms_runs"] = [x["wall_ms"], y["wall_ms"]]
+        out.append(m)
+    return out[0], out[1]
+
+
+def show(fig: dict) -> str:
+    dev = ("not measured" if fig["device_ms"] is None else
+           f"{fig['device_ms']:.3f} ms in {fig['device_ops']:.0f} device ops, "
+           f"busy share {fig['busy_share']:.3f}")
+    return (f"wall {fig['wall_ms']:.3f} ms, CUDA events {fig['events_ms']:.3f}"
+            f" ms, device (torch.profiler) {dev}, {fig['keys_per_s']:,.0f} "
+            f"keys/s")
 
 
 def check_vector(found, vector: set) -> None:
@@ -433,7 +523,7 @@ def main() -> int:
 
     import numpy as np
 
-    from ecloop_tpu_torch import _build, cli, ecc, fel, hash160, kernels
+    from ecloop_tpu_torch import _build, cli, ecc, fel, graphs, hash160, kernels
     from ecloop_tpu_torch import benchlib, bloom, checkpoint, filters, golden
     from ecloop_tpu_torch import sol
     from ecloop_tpu_torch.search import add, common, mul, rnd
@@ -475,6 +565,9 @@ def main() -> int:
     split_widths = [shard_widths(split_config(n, re_, endo), n)
                     for _, n, re_, endo in SPLITS + (
                         ("two_processes", TWO_PROCS, 0xFFFFFF, False),)]
+    wide_cfg = common.SearchConfig(range_s=0x8000, range_e=0xFFFFFF,
+                                   centers=WIDE_CENTERS)
+    split_widths.append(shard_widths(wide_cfg, 1))
     hash_ns = sorted({HASH_N, MUL_N} | {w for w, _ in split_widths},
                      reverse=True)
     inv_ns = sorted({INV_N, MUL_N, GTABLE_N, HASH_N, VERIFY_N, 1000, 33, 1}
@@ -665,6 +758,7 @@ def main() -> int:
                                  f"lines, rc {chk_rc}")
         run = cli.run_add(cli.Args(["ecloop", "add", "-f", blf_path,
                                     "-r", "8000:ffffff", "-a", "cu"]))
+        blf_filt = filters.load_filter(blf_path)
     got33 = {f.priv for f in run.found if f.label == "addr33"}
     if not NINE_KEYS <= got33:
         raise AssertionError(f"bloom mode missed {NINE_KEYS - got33}")
@@ -839,11 +933,138 @@ def main() -> int:
     split = mul_breakdown(lines, dev)
     phase("d", f"mul time split: parse {split['parse_s']:.3f} s; engine on "
                f"parsed keys {split['engine_s']:.3f} s = "
-               f"{split['engine_keys_per_s']:,.0f} keys/s; one job (torch."
-               f"profiler, 4 steps): wall {split['step_wall_ms_profiled']:.3f} "
-               f"ms, device {split['step_device_ms']:.3f} ms in "
-               f"{split['device_ops_per_step']:.0f} device ops, busy share "
-               f"{split['busy_share']:.3f}")
+               f"{split['engine_keys_per_s']:,.0f} keys/s")
+
+    # --- n: the one-dispatch calls (a CUDA graph) against the eager steps -----------
+    puzzles = filters.load_filter(PUZZLES)
+    step_calls = {}
+
+    def add_call(name, cfg, filt, cmp_max=None):
+        """Build the call (its capture's host seconds and peak memory),
+        replay it from the first centers of 8000:ffffff, and hold its
+        masks and next centers against the eager steps'."""
+        env = os.environ.pop("ECLOOP_CMP_MAX", None)
+        if cmp_max is not None:
+            os.environ["ECLOOP_CMP_MAX"] = cmp_max
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            call = add.build_step_fn(cfg, filt, dev)
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
+        finally:
+            os.environ.pop("ECLOOP_CMP_MAX", None)
+            if env is not None:
+                os.environ["ECLOOP_CMP_MAX"] = env
+        cx, cy = (fel.from_last(a, dev) for a in add.center_points(cfg, 0x8000))
+        call.seed(cx, cy)
+        with no_direct_launches(kernels, f"add call ({name})"):
+            call()
+        masks = []
+        for _ in range(cfg.steps_per_call):
+            cx, cy, m = call.step(cx, cy, *call.table, call.bits)
+            masks.append(m)
+        torch.cuda.synchronize()
+        if not (torch.equal(call.masks, torch.stack(masks))
+                and torch.equal(call.cx, cx) and torch.equal(call.cy, cy)):
+            raise AssertionError(f"add call ({name}): the graph's masks or "
+                                 f"centers differ from the eager steps'")
+        hits = int(call.masks.count_nonzero())
+        if not hits:
+            raise AssertionError(f"add call ({name}): no hit in the first "
+                                 f"{cfg.steps_per_call} steps")
+        step_calls[name] = {
+            "centers": cfg.centers, "steps": cfg.steps_per_call,
+            "capture_s": call.graph.capture_s, "peak_mib": peak,
+            "kernel_launches_per_replay": len(call.graph.launches),
+            "replays_per_call": cfg.steps_per_call, "hit_words": hits}
+        phase("n", f"add {name} ({cfg.centers} x {cfg.group_k}, T = "
+                   f"{cfg.steps_per_call}): graph call == {cfg.steps_per_call}"
+                   f" eager steps (masks and next centers bit-identical, "
+                   f"{hits} mask words with a hit); built in "
+                   f"{call.graph.capture_s:.3f} s (warm-up and capture), "
+                   f"peak {peak:.0f} MiB, {len(call.graph.launches)} kernel "
+                   f"launches per replay (one step), {cfg.steps_per_call} "
+                   f"replays per call")
+        return call
+
+    def add_timing(name, call, cfg):
+        """Per step: the call (one step's graph replayed T times), the
+        alternative of one graph of all T steps, and the eager steps."""
+        t_ = cfg.steps_per_call
+        st = [call.cx.clone(), call.cy.clone()]
+        masks = call.masks.clone()
+
+        def t_steps(t):
+            cx, cy, m = call.step(st[0], st[1], *call.table, call.bits)
+            st[0].copy_(cx)
+            st[1].copy_(cy)
+            masks[t].copy_(m)
+        whole = graphs.Graph(t_steps, dev, t_)
+
+        def eager():
+            cx, cy = st
+            for _ in range(t_):
+                cx, cy, _m = call.step(cx, cy, *call.table, call.bits)
+        keys = cfg.keys_per_step
+        graph, graph_t = in_turns(lambda: call_figures(call, t_, keys, 10),
+                                  lambda: call_figures(whole, t_, keys, 10))
+        figs = {"graph": graph, "graph_t_steps": graph_t,
+                "eager": call_figures(eager, t_, keys, 3)}
+        figs["graph_t_steps"]["capture_s"] = whole.capture_s
+        step_calls[name].update(figs)
+        for k, f in figs.items():
+            phase("n", f"add {name} per step, {k}: {show(f)}; card {card}")
+
+    base_cfg = common.SearchConfig(range_s=0x8000, range_e=0xFFFFFF)
+    add_timing("list", add_call("list", base_cfg, puzzles), base_cfg)
+    add_call("pow2", base_cfg, puzzles, cmp_max="0")
+    add_call("bloom", base_cfg, blf_filt)
+    add_call("endo", dataclasses.replace(base_cfg, endo=True), puzzles)
+    add_timing("list_512", add_call("list_512", wide_cfg, puzzles), wide_cfg)
+
+    mfilt = filters.load_filter(BW_HASH)
+    mwords = mul.parse_hex_words(bw_lines + lines[:MUL_N - len(bw_lines)])
+    mdig = np.ascontiguousarray(mul.window_digits_words(mwords, mul.W).T,
+                                dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    mcall = mul.build_mul_step(common.SearchConfig(addr33=True, addr65=True),
+                               mfilt, mul.W, MUL_N, dev)
+    mpeak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
+    mcall.upload(mdig)
+    with no_direct_launches(kernels, "mul call"):
+        mcall()
+    mdig_t = torch.from_numpy(mdig).to(dev)
+    want = mcall.step(mdig_t, mcall.txy, mcall.bits)
+    torch.cuda.synchronize()
+    if not torch.equal(mcall.masks, want):
+        raise AssertionError("mul call: the graph's masks differ from the "
+                             "eager job's")
+    mhits = int(np.unpackbits(want.cpu().numpy().astype("<u4").view(
+        np.uint8)).sum())
+    if mhits < 1080:
+        raise AssertionError(f"mul call: {mhits} hit bits, the job holds the "
+                             f"1080-key vector")
+    step_calls["mul"] = {
+        "batch": MUL_N, "capture_s": mcall.graph.capture_s, "peak_mib": mpeak,
+        "kernel_launches_per_replay": len(mcall.graph.launches),
+        "hit_bits": mhits,
+        "graph": call_figures(mcall, 1, MUL_N, 50),
+        "eager": call_figures(lambda: mcall.step(mdig_t, mcall.txy,
+                                                 mcall.bits), 1, MUL_N, 20)}
+    phase("n", f"mul job ({MUL_N:,} keys, the 1080-key vector among them, "
+               f"btc-bw-hash's 1,080 targets): graph == eager job "
+               f"(masks bit-identical, {mhits} hit bits); built in "
+               f"{mcall.graph.capture_s:.3f} s, peak {mpeak:.0f} MiB, "
+               f"{len(mcall.graph.launches)} kernel launches per replay")
+    for k in ("graph", "eager"):
+        phase("n", f"mul job, {k}: {show(step_calls['mul'][k])}; card {card}")
+    phase("n", "most costly device ops per call (count, ms): " + "; ".join(
+        f"{name} {k}: {v[k]['top_device_ops']}" for name, v in
+        step_calls.items() for k in ("graph", "eager") if k in v))
+    del mcall
 
     # --- 6: timing ----------------------------------------------------------------
     x = torch.from_numpy(fel.random_limbs(rng, HASH_N)).to(dev)
@@ -974,7 +1195,7 @@ def main() -> int:
                       + ")"))
     phase("h", f"bench: {len(rows)} rows at B={HASH_N} R={BENCH_R}, every share "
                f"<= 100% (highest {max(r['share'] for r in rows):.1%}), in "
-               f"{bench_s:.1f} s; launches at warm-up and capture "
+               f"{bench_s:.1f} s; launches (warm-ups and replays) "
                f"{launches_bench}; card {card}")
 
     # --- i: bench-gtable sweep ------------------------------------------------------------
@@ -1041,7 +1262,6 @@ def main() -> int:
         raise AssertionError(f"add -t 2: {run.found}, {run.k_checked}")
     phase("k", f"add -t 2 with {torch.cuda.device_count()} card(s): "
                f"'devices: {n_cards}', c936 found, k_checked {run.k_checked:,}")
-    puzzles = filters.load_filter(PUZZLES)
     split_runs = {}
     for name, n, range_e, endo in SPLITS:
         cfg = split_config(n, range_e, endo)
@@ -1049,7 +1269,8 @@ def main() -> int:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        found = eng.run_range()
+        with no_direct_launches(kernels, name):
+            found = eng.run_range()
         torch.cuda.synchronize()
         split_runs[name] = {"devices": n, "centers": cfg.centers,
                             "seconds": time.monotonic() - t0,
@@ -1074,7 +1295,8 @@ def main() -> int:
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    found = meng.run_lines(bw_lines)
+    with no_direct_launches(kernels, "mul_sharded"):
+        found = meng.run_lines(bw_lines)
     torch.cuda.synchronize()
     split_runs["mul_sharded"] = {"devices": 2, "seconds": time.monotonic() - t0,
                                  "k_checked": meng.k_checked,
@@ -1142,6 +1364,32 @@ def main() -> int:
                "version: " + "; ".join(
                    f"{k} {sorted(v)}" for k, v in searched.items()))
 
+    # --- o: a body the card cannot capture fails; the old probe was one --------------
+    # (last: a failed capture may leave its stream current)
+    x = torch.ones(4, device=dev)
+
+    def first_error(e: BaseException) -> str:
+        while e.__context__ is not None:            # the body's own error
+            e = e.__context__
+        return str(e).splitlines()[0][:160]
+    fw, h0 = puzzles.first_words(dev), torch.from_numpy(
+        rng.integers(0, 1 << 32, size=HASH_N)).to(dev)
+    try:
+        graphs.Graph(lambda _: torch.isin(h0, fw), dev)
+        isin_err = None
+    except RuntimeError as e:
+        isin_err = first_error(e)
+    try:
+        graphs.Graph(lambda _: x.sum().item(), dev)
+    except RuntimeError as e:
+        sync_err = first_error(e)
+    else:
+        raise AssertionError("a graph that syncs with the host was captured")
+    phase("o", f"capture of a body with a host sync raised: {sync_err!r}; "
+               f"torch.isin over {fw.numel()} first words (the compare probe's "
+               f"former form): "
+               + (f"raised {isin_err!r}" if isin_err else "captured"))
+
     def entry(name, key, source, replaces, **extra):
         launches = {"add": launches_add[name], "mul": launches_mul[name],
                     "rnd": launches_rnd[name],
@@ -1190,6 +1438,8 @@ def main() -> int:
         "profiler_short_windows": SHORT_WINDOWS,
         "searched_widths": {k: sorted(v) for k, v in searched.items()},
         "two_processes_s": two_procs_s, "bench_rows": rows, "bench_checks": checks,
+        "step_calls": step_calls, "capture_sync_error": sync_err,
+        "isin_capture_error": isin_err,
         "gtable_sweep": sweep, "mult_verify": {
             "count": VERIFY_N, "w": mul.W, "seconds": verify_s, "rc": rc,
             "corrupt_rc": rc_bad}, "smoke_s": time.monotonic() - t_start}

@@ -8,9 +8,9 @@ graph when the body is a few kernels, one iteration replayed R times
 when it is plain torch glue of thousands of ops.  The graph takes the
 place of the JAX bench's jit(fori_loop): without the host's launch cost
 a row reads the device's rate.  Times are CUDA events around replays
-after a warm-up replay.  Kernel launches count at warm-up and capture
-(`kernels.LAUNCHES`), not at replay.  On the CPU the same bodies run
-eagerly, once: a check of the path, not a measurement.
+after a warm-up replay.  Kernel launches count at the warm-up and at
+every replay (`kernels.LAUNCHES`, `graphs.Graph`).  On the CPU the same
+bodies run eagerly, once: a check of the path, not a measurement.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from . import bloom, ecc, fel, golden, kernels, sol
+from . import bloom, ecc, fel, golden, graphs, kernels, sol
 from .search import mul
 from .search.common import SearchConfig
 
@@ -42,36 +42,21 @@ ROW_NAMES = (
 class Loop:
     """`iters` iterations of body(*state) -> new state, each writing the
     new state into the state tensors (a tensor the body returns as it
-    is, updated in place, is not copied).  On a CUDA device the body
-    runs once on a side stream to warm up (constants, the kernels'
-    library), then all iterations are captured in one CUDA graph, which
-    each call replays; a body that cannot be captured raises there."""
+    is, updated in place, is not copied): on a CUDA device one
+    `graphs.Graph` of all iterations, which each call replays, after a
+    warm-up iteration at set-up."""
 
     def __init__(self, body, state, iters: int = 1):
-        self.body, self.state, self.iters = body, tuple(state), iters
-        self.graph = None
-        if self.state[0].is_cuda:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.body(*self.state)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self._iterate()
+        self.state = tuple(state)
 
-    def _iterate(self) -> None:
-        for _ in range(self.iters):
-            out = self.body(*self.state)
-            for s, o in zip(self.state, out):
+        def step(_):
+            for s, o in zip(self.state, body(*self.state)):
                 if o is not s:
                     s.copy_(o)
+        self.graph = graphs.Graph(step, self.state[0].device, iters)
 
     def __call__(self) -> None:
-        if self.graph is None:
-            self._iterate()
-        else:
-            self.graph.replay()
+        self.graph()
 
 
 class ScalarMul:
@@ -160,7 +145,7 @@ def bench_rows(device, B: int | None = None, R: int | None = None,
     measured.  Each row: its name, M it/s, the form (graph or eager),
     iterations and elements per iteration, seconds per iteration, and on
     the card its bound (M it/s, what binds it, the share measured/bound)
-    and the kernel launches made while it was set up."""
+    and the kernel launches made while it was set up and timed."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     B = B or int(os.environ.get("ECLOOP_BENCH_B", 131072 if on_card else 2048))
@@ -203,11 +188,11 @@ def bench_rows(device, B: int | None = None, R: int | None = None,
                 for _ in range(r):
                     one()
             form = "graph per bit step" if on_card else "eager"
-        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
         sec = seconds_per_call(run, device) / r
+        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
         row = {"name": name, "mits": elems / sec / 1e6, "form": form,
                "iters": r, "elems": elems, "s_per_iter": sec,
-               "launches_at_capture": launches}
+               "launches": launches}
         text = f"{name:42s}: {row['mits']:10.3f} M it/s"
         if int_ops:
             b_ms, by = sol.bound(*account, int_ops, mem_bps)

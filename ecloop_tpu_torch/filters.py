@@ -60,7 +60,7 @@ class Filter:
             return bloom.probe_exact(h, bits, nbits=self.blf.nbits,
                                      nprobes=self.blf_probes)
         if first_words is not None:
-            return torch.isin(h[0], first_words)
+            return probe_first_words(h[0], first_words)
         return bloom.probe_pow2(h, bits, log2_bits=self.pow2_log2)
 
     # --- host side (authoritative) ---
@@ -76,6 +76,20 @@ class Filter:
     def __post_init__(self):
         self._keys = (None if self.targets is None
                       else {_h160_key(h) for h in self.targets})
+
+
+def probe_first_words(h0: torch.Tensor,
+                      first_words: torch.Tensor) -> torch.Tensor:
+    """h0 in first_words (sorted, unique), elementwise: the compare
+    prefilter.  A binary search of fixed depth and one equality test,
+    with no data-dependent size, so it needs no host sync and a CUDA
+    graph can capture it (torch.isin sorts and runs unique past a few
+    dozen targets)."""
+    if first_words.numel() == 0:
+        return torch.zeros_like(h0, dtype=torch.bool)
+    h0 = h0.contiguous()
+    i = torch.searchsorted(first_words, h0).clamp_(max=first_words.numel() - 1)
+    return first_words[i] == h0
 
 
 def _h160_key(h: np.ndarray) -> int:

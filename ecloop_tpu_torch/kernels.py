@@ -12,9 +12,14 @@ allocates its outputs with torch.empty and raises when the launch
 reports an error or would run on another device than its data.
 LAUNCHES counts the launches of each kernel, and WIDTHS gathers the
 widths (elements per launch) they ran at until its caller clears it.
+A launch made while a CUDA graph is captured runs only when the graph
+is replayed: inside `recording()` the wrappers note it there instead,
+and `graphs.Graph` counts it at each replay (`count_launches`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -23,11 +28,41 @@ from . import _build, ecc, fel, hash160
 NLIMBS = 16
 LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0}
 WIDTHS = {k: set() for k in LAUNCHES}
+_recorder: list | None = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(name: str, n: int) -> None:
+    """One launch of kernel `name` at width n: counted, or noted in the
+    open `recording()` while a graph is captured."""
+    if _recorder is not None:
+        _recorder.append((name, n))
+    else:
+        count_launches(((name, n),))
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the (kernel, width) of every launch inside the block in
+    the yielded list instead of counting them."""
+    global _recorder
+    outer, _recorder = _recorder, []
+    try:
+        yield _recorder
+    finally:
+        _recorder = outer
+
+
+def count_launches(launches) -> None:
+    """Count (kernel, width) launches: the ones a `recording()`
+    collected, at each replay of the graph that holds them."""
+    for name, n in launches:
+        LAUNCHES[name] += 1
+        WIDTHS[name].add(n)
 
 
 def _check_limbs(name: str, t: torch.Tensor) -> None:
@@ -80,8 +115,7 @@ def _hash_rows(x: torch.Tensor, y: torch.Tensor, is33: bool) -> torch.Tensor:
     if n:
         _launch("ecl_hash160", x.device, x.data_ptr(), y.data_ptr(),
                 out.data_ptr(), n, int(is33))
-        LAUNCHES["hash160"] += 1
-        WIDTHS["hash160"].add(n)
+        _count("hash160", n)
     return out
 
 
@@ -106,8 +140,7 @@ def inv_mod_batch(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if n:
         _launch("ecl_inv_batch", x.device, x.data_ptr(), out.data_ptr(), n)
-        LAUNCHES["inv_mod_batch"] += 1
-        WIDTHS["inv_mod_batch"].add(n)
+        _count("inv_mod_batch", n)
     return out
 
 
@@ -146,6 +179,5 @@ def proj_add_affine(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
         _launch("ecl_mixed_add", qx.device, qx.data_ptr(), qy.data_ptr(),
                 qz.data_ptr(), gx.data_ptr(), gy.data_ptr(), skip.data_ptr(),
                 out.data_ptr(), n, int(complete))
-        LAUNCHES["mixed_add"] += 1
-        WIDTHS["mixed_add"].add(n)
+        _count("mixed_add", n)
     return out[0], out[1], out[2]

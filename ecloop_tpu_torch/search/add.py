@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import bloom, ecc, fel, golden, kernels
+from .. import bloom, ecc, fel, golden, graphs, kernels
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
@@ -179,13 +179,65 @@ def make_step(cfg: SearchConfig, filt: Filter, device):
     return step
 
 
+class StepCall:
+    """`cfg.steps_per_call` steps of `make_step` as one call (the
+    counterpart of the JAX package's `build_step_fn`).  On a CUDA device
+    one step is captured once as a `graphs.Graph` and a call replays it
+    T times; on the CPU the steps run eagerly.  (A graph of all T steps,
+    the shape of the JAX package's `lax.scan`, took 5-10x as long to
+    capture and replayed no faster: PERF.md, section 5.)
+
+    Its tensors keep their addresses: `cx`, `cy` (16, M) hold the
+    centers, which a call advances in place; `masks` (T, V, M*K/32)
+    receives each step's packed hit planes, overwritten by the next
+    call; `table` and `bits` are the step's other inputs.  `table` is
+    (tx, ty, dpx, dpy) as `_cached_table` gives it, the cfg's own by
+    default.  `step` is the eager single step."""
+
+    def __init__(self, cfg: SearchConfig, filt: Filter, device, table=None):
+        device = torch.device(device)
+        if table is None:
+            table = _cached_table(cfg.stride, cfg.group_k, cfg.keys_per_step)
+        self.step = make_step(cfg, filt, device)
+        self.table = tuple(fel.from_last(a, device) for a in table)
+        self.bits = bloom.bits_tensor(filt.device_bits, device)
+        self.cx = torch.zeros((NLIMBS, cfg.centers), dtype=torch.int64,
+                              device=device)
+        self.cy = torch.zeros_like(self.cx)
+        self.masks = torch.zeros((max(1, cfg.steps_per_call),
+                                  len(_variants(cfg)), cfg.keys_per_step // 32),
+                                 dtype=torch.int64, device=device)
+        self._out = torch.empty_like(self.masks[0])
+
+        def body(_):
+            cx, cy, m = self.step(self.cx, self.cy, *self.table, self.bits)
+            self.cx.copy_(cx)
+            self.cy.copy_(cy)
+            self._out.copy_(m)
+        self.graph = graphs.Graph(body, device)
+
+    def seed(self, cx: torch.Tensor, cy: torch.Tensor) -> None:
+        """Set the centers that the next call starts from."""
+        self.cx.copy_(cx)
+        self.cy.copy_(cy)
+
+    def __call__(self) -> None:
+        for slot in self.masks:
+            self.graph()
+            slot.copy_(self._out)
+
+
+build_step_fn = StepCall          # the JAX package's name for it
+
+
 class AddShard:
     """One device's block of every step's centers: the M' = local_cfg's
     centers of global index [index*M', (index+1)*M'), stepped with
-    `make_step` at M' centers.  The table and the advance point are the
-    whole geometry's (`cfg`): every center advances by the global
-    M*K*s*G, or the blocks would overlap and leave keys unsearched.  A
-    step's hit bit j is the key at offset `offset` + j within the step."""
+    `make_step` at M' centers, T steps per call (`StepCall`).  The table
+    and the advance point are the whole geometry's (`cfg`): every center
+    advances by the global M*K*s*G, or the blocks would overlap and
+    leave keys unsearched.  A step's hit bit j is the key at offset
+    `offset` + j within the step."""
 
     def __init__(self, index: int, device, cfg: SearchConfig,
                  local_cfg: SearchConfig, filt: Filter):
@@ -193,14 +245,13 @@ class AddShard:
         self.centers = slice(index * local_cfg.centers,
                              (index + 1) * local_cfg.centers)
         self.offset = index * local_cfg.keys_per_step
-        self.step_fn = make_step(local_cfg, filt, self.device)
-        self.table = tuple(fel.from_last(a, self.device) for a in _cached_table(
+        self.call = StepCall(local_cfg, filt, self.device, _cached_table(
             cfg.stride, cfg.group_k, cfg.keys_per_step))
-        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
 
     def step(self, cx: torch.Tensor, cy: torch.Tensor):
-        """(cx, cy) -> (cx', cy', masks) for this block's centers."""
-        return self.step_fn(cx, cy, *self.table, self.bits)
+        """One eager step: (cx, cy) -> (cx', cy', masks) for this block's
+        centers (the reference the graph is held to)."""
+        return self.call.step(cx, cy, *self.call.table, self.call.bits)
 
 
 class AddSearch:
@@ -285,30 +336,28 @@ class AddSearch:
         """Search keys base + i*stride for i in [0, n_keys); a hit at
         offset i counts only where hit_offsets_valid(i) holds.
 
-        Each call queues the steps_per_call steps of every shard, then
-        starts an asynchronous copy of each shard's masks into pinned
-        host memory; that call's masks are drained only after the next
-        call's steps are queued, so the host's hit handling overlaps the
-        devices' work."""
+        The span's first centers go into each shard's `StepCall`; each
+        call runs the steps_per_call steps of every shard (on the card
+        one step's graph replayed T times per shard), then starts an asynchronous copy
+        of each shard's masks into pinned host memory, queued before the
+        next call overwrites them.  A call's masks are drained only
+        after the next call is queued, so the host's hit handling
+        overlaps the devices' work."""
         cfg = self.cfg
         mk = cfg.keys_per_step
         t_ = max(1, cfg.steps_per_call)
         calls = -(-(-(-n_keys // mk)) // t_)
         check_no_degenerate(cfg, base, calls * t_ * mk)
-        state = self.shard_centers(base)
+        for shard, (cx, cy) in zip(self.shards, self.shard_centers(base)):
+            shard.call.seed(cx, cy)
         found = []
         pending = None
         for c in range(calls):
             fetches = []
-            for i, shard in enumerate(self.shards):
-                cx, cy = state[i]
-                masks = []
-                for _ in range(t_):
-                    cx, cy, m = shard.step(cx, cy)
-                    masks.append(m)
-                state[i] = (cx, cy)
+            for shard in self.shards:
+                shard.call()
                 fetches.append((shard.offset,
-                                common.fetch_async(torch.stack(masks))))
+                                common.fetch_async(shard.call.masks)))
             if pending is not None:
                 found.extend(self._drain(*pending, base, n_keys,
                                          hit_offsets_valid, on_found, on_step))

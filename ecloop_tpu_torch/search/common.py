@@ -36,9 +36,11 @@ def fetch_async(t: torch.Tensor):
     """Start copying `t` (hit masks) into pinned host memory on the
     current stream of `t`'s device; `fetched()` waits for the copy.  The
     copy runs on that device's stream whichever device is current, so
-    the event is recorded there too.  A CPU tensor is its own copy."""
+    the event is recorded there too; work queued later on that stream
+    (the next graph replay) may overwrite `t`.  A CPU tensor is copied
+    at once."""
     if t.device.type != "cuda":
-        return t, None
+        return t.clone(), None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
@@ -66,7 +68,7 @@ class SearchConfig:
     # defaults are the JAX package's; they are a starting point here.
     centers: int = 32                 # M parallel group centers
     group_k: int = 4096               # K keys per center per step
-    steps_per_call: int = 8           # steps between two mask drains
+    steps_per_call: int = 8           # steps per call (one mask fetch)
 
     @property
     def stride(self) -> int:

@@ -24,7 +24,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import bloom, ecc, fel, golden, kernels
+from .. import bloom, ecc, fel, golden, graphs, kernels
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
@@ -250,32 +250,63 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
     return step
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """numpy -> `device`, through pinned memory and an asynchronous copy
-    on `device`'s current stream (whichever device is current), where
-    the step that reads it runs too."""
-    t = torch.from_numpy(a)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+class MulCall:
+    """One `mul` job as one call (the counterpart of the JAX package's
+    `build_mul_step`): on a CUDA device one `graphs.Graph` of
+    `make_mul_step`, replayed once per job; on the CPU the step runs
+    eagerly.  Its tensors keep their addresses: `dig` (d, batch) int32
+    takes the job's window digits (`upload`), `masks` (V, batch/32)
+    receives its hit planes, overwritten by the next call; `txy` is the
+    table (`build_gtable(w, device)` by default) and `bits` the filter's
+    device bits."""
+
+    def __init__(self, cfg: SearchConfig, filt: Filter, w: int, batch: int,
+                 device, table: torch.Tensor | None = None):
+        device = torch.device(device)
+        self.step = make_mul_step(cfg, filt, w, batch, device)
+        self.txy = build_gtable(w, device) if table is None else table
+        self.bits = bloom.bits_tensor(filt.device_bits, device)
+        self.dig = torch.zeros((n_windows(w), batch), dtype=torch.int32,
+                               device=device)
+        self.masks = torch.zeros((len(_labels(cfg)), batch // 32),
+                                 dtype=torch.int64, device=device)
+
+        def body(_):
+            self.masks.copy_(self.step(self.dig, self.txy, self.bits))
+        self.graph = graphs.Graph(body, device)
+
+    def upload(self, dig: np.ndarray) -> None:
+        """Copy (d, batch) digits into `dig` through pinned memory, queued
+        on the current stream of `dig`'s device (whichever device is
+        current), where the replay that reads them runs too: the host
+        does not wait."""
+        src = torch.from_numpy(dig)
+        if self.dig.is_cuda:
+            src = src.pin_memory()
+        self.dig.copy_(src, non_blocking=True)
+
+    def __call__(self) -> None:
+        self.graph()
+
+
+build_mul_step = MulCall          # the JAX package's name for it
 
 
 class MulShard:
     """One device's block of every job: the table, the filter bits and
-    the step at the block's width, on its device."""
+    the job call (`MulCall`) at the block's width, on its device."""
 
     def __init__(self, device, cfg: SearchConfig, filt: Filter, w: int,
                  batch: int):
         self.device = torch.device(device)
-        self.txy = build_gtable(w, self.device)
-        self.bits = bloom.bits_tensor(filt.device_bits, self.device)
-        self.step_fn = make_mul_step(cfg, filt, w, batch, self.device)
+        self.call = MulCall(cfg, filt, w, batch, self.device)
 
     def launch(self, dig: np.ndarray):
-        """Queue the step on the block's (d, batch) digits; returns the
+        """Queue the job on the block's (d, batch) digits; returns the
         `common.fetch_async` handle of its (V, batch/32) masks."""
-        return common.fetch_async(self.step_fn(_upload(dig, self.device),
-                                               self.txy, self.bits))
+        self.call.upload(dig)
+        self.call()
+        return common.fetch_async(self.call.masks)
 
 
 class MulSearch:

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from ecloop_tpu_torch import benchlib, ecc, fel, filters, golden, hash160
+from ecloop_tpu_torch import benchlib, ecc, fel, filters, golden, graphs, hash160
 from ecloop_tpu_torch import kernels
 from ecloop_tpu_torch.search import add, mul
 from ecloop_tpu_torch.search.common import SearchConfig
@@ -206,6 +206,85 @@ def test_window_scan_gives_the_mul_steps_masks(dev):
     assert got == [golden.point_mul(k) for k in keys[:8]]
 
 
+def _puzzles():
+    return filters.load_filter(os.path.join(os.path.dirname(__file__), "..",
+                                            "data", "btc-puzzles-hash"))
+
+
+def test_graph_call_equals_eager_steps(dev):
+    """`build_step_fn`'s graph replay equals T eager steps, over two
+    calls, with the centers re-seeded between them (`rnd`'s case), in
+    -endo with both address forms; each call counts T x V K1 launches."""
+    cfg = SearchConfig(range_s=0x8000, range_e=0x10000, endo=True,
+                       addr65=True, centers=8, group_k=256, steps_per_call=3)
+    call = add.build_step_fn(cfg, _puzzles(), dev)
+    assert call.graph.graph is not None
+    v = len(add._variants(cfg))
+    kernels.reset_launches()
+    for base in (0x8000, 0x9000):
+        cx, cy = (fel.from_last(a, dev) for a in add.center_points(cfg, base))
+        call.seed(cx, cy)
+        call()
+        masks = []
+        for _ in range(cfg.steps_per_call):
+            cx, cy, m = call.step(cx, cy, *call.table, call.bits)
+            masks.append(m)
+        assert torch.equal(call.masks, torch.stack(masks))
+        assert torch.equal(call.cx, cx) and torch.equal(call.cy, cy)
+    n = 2 + 2          # two replays, then the eager steps' own launches
+    assert kernels.LAUNCHES["hash160"] == n * cfg.steps_per_call * v
+    assert kernels.LAUNCHES["inv_mod_batch"] == n * cfg.steps_per_call
+
+
+def test_mul_graph_job_equals_eager(dev):
+    """`build_mul_step`'s replay equals the eager job, twice over, with
+    the digits uploaded between replays."""
+    filt = filters.load_filter(os.path.join(os.path.dirname(__file__), "..",
+                                            "data", "btc-bw-hash"))
+    with open(os.path.join(os.path.dirname(__file__), "..", "data",
+                           "btc-bw-priv")) as f:
+        keys = [int(ln, 16) for ln in f.read().split()[:1000]]
+    cfg = mul.SearchConfig(addr33=True, addr65=True)
+    w, batch = 8, 1024
+    call = mul.build_mul_step(cfg, filt, w, batch, dev)
+    for ks in (keys, keys[::-1][:batch // 2]):
+        dig = np.zeros((mul.n_windows(w), batch), dtype=np.int32)
+        dig[:, :len(ks)] = mul.window_digits(ks, w).T
+        call.upload(dig)
+        call()
+        want = call.step(torch.from_numpy(dig).to(dev), call.txy, call.bits)
+        assert torch.equal(call.masks, want)
+        assert int(np.unpackbits(want.cpu().numpy().astype("<u4").view(
+            np.uint8)).sum()) >= len(ks)
+
+
+def test_engines_launch_only_through_graph_replays(dev, monkeypatch):
+    """Once built, `AddSearch` and `MulSearch` over [dev] x 2 launch no
+    kernel through the wrappers: each call is one replay per shard, and
+    the launches counted are the replays' recorded ones."""
+    targets = [0x70005, 0x702A0, 0x707F0]
+    filt = filters.filter_from_hashes(np.stack([np.frombuffer(
+        golden.addr33(golden.point_mul(k)), dtype=">u4").astype(np.uint32)
+        for k in targets]))
+    cfg = SearchConfig(range_s=0x70000, range_e=0x70800, centers=8,
+                       group_k=256, steps_per_call=2)
+    eng = add.AddSearch(cfg, filt, [dev, dev])
+    meng = mul.MulSearch(mul.SearchConfig(), filt, [dev, dev], w=8, batch=512)
+
+    def refuse(*args):
+        raise AssertionError("a kernel launched outside a graph replay")
+    monkeypatch.setattr(kernels, "_launch", refuse)
+    kernels.reset_launches()
+    assert {f.priv for f in eng.run_range()} == set(targets)
+    # 0x800 keys at 8 x 256 per step: one step, so one call per shard
+    assert kernels.LAUNCHES == {"hash160": 2 * 2, "inv_mod_batch": 2 * 2,
+                                "mixed_add": 0}
+    kernels.reset_launches()
+    assert {f.priv for f in meng.run_keys(targets + [5, 6])} == set(targets)
+    assert kernels.LAUNCHES == {"hash160": 2, "inv_mod_batch": 2,
+                                "mixed_add": 2 * mul.n_windows(8)}
+
+
 def _sharded_add_parity(devices):
     """A sharded `add` over `devices` against `AddSearch` on the first:
     the same found set and key count on a range with planted keys, and
@@ -257,3 +336,13 @@ def test_sharded_add_over_two_cards():
     assert done.device == d1
     assert np.array_equal(common.fetched((host, done)), x.cpu().numpy())
     _sharded_add_parity([d0, d1])
+
+
+def test_failed_capture_raises(dev):
+    """A body that syncs with the host cannot be captured: building its
+    graph raises, with no eager fallback."""
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        graphs.Graph(lambda _: x.sum().item(), dev)
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 4.0
