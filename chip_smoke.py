@@ -29,8 +29,14 @@ On the card every search call runs from one CUDA graph per shard
 steps at 32 x 4096 in list, pow2, bloom and -endo modes, and at
 512 x 4096) and one 32,768-key `mul` job against the eager steps bit
 for bit and times both (capture, replay wall, device time, busy share,
-keys/s); phases n and k fail if a kernel launches outside a replay, and
-phase o that a body the card cannot capture (a host sync) raises.
+keys/s); phases n and k fail if a kernel launches outside a replay.
+Phase p runs `add -r 8000:fffff` and `mul` on the 1080-key vector
+through the CLI in processes of their own, untraced and with
+ECLOOP_PROFILE (a torch.profiler trace of the whole command): stdout,
+k_checked, launches and graphs must agree, and the trace must hold
+K1-K3 inside graph replays; a traced `blf-check` must leave the card
+alone.  Phase o, last, fails unless a body the card cannot capture (a
+host sync) raises.
 Each phase prints one line or more; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
 and the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -80,6 +86,16 @@ SPLITS = (("add_one_device", 1, 0xFFFFFF, False),
           ("add_sharded_endo", 4, 0xFFFF, True))
 TWO_PROCS = 2            # phase l: processes of one device each
 WIDE_CENTERS = 512       # phase n: the wide `add` geometry (512 x 4096)
+PROFILE_RANGE = "8000:fffff"   # phase p: puzzles 16-20, one call of 8 steps
+PROFILE_KEYS = {k for k in NINE_KEYS if k <= 0xFFFFF}
+CLI_TIMEOUT_S = 600      # phase p: each traced or untraced CLI process's limit
+# phase p: the kernels' names in a trace (the __global__ functions)
+KERNEL_SYMBOLS = {"hash160": "hash160_kernel", "inv_mod_batch": "inv_batch_kernel",
+                  "mixed_add": "mixed_add_kernel"}
+DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
+CUDA_CATS = DEVICE_CATS | {"cuda_runtime", "cuda_driver", "gpu_user_annotation"}
+TRACE_LINE = re.compile(r"^profile: (.+), ([\d,]+) bytes, written in ([\d.]+) s$",
+                        re.M)
 PROFILE_TRIES = 8        # profiler windows per device time (device_ms), and
 PROFILE_PAUSE_S = 1.0    # the pause after a short one
 SHORT_WINDOWS = []       # the short windows' messages, for the report
@@ -512,6 +528,132 @@ def two_processes(argv: list[str]) -> list[dict]:
             "launches": json.loads(tail[-2]),
             "widths": json.loads(tail[-1])})
     return results
+
+
+# phase p's process: the CLI's main(argv) and, as the last line of its
+# stdout, what it ran (exit code, host s of main() and of the profiler's
+# start and stop, kernel launches and widths, the capture s and launches
+# of every graph, whether it initialized the card)
+CLI_CHILD = """\
+import json, sys, time
+import torch
+from torch.profiler import profile
+from ecloop_tpu_torch import cli, graphs, kernels
+captures, spent = [], {}
+init = graphs.Graph.__init__
+def noted(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    captures.append([self.capture_s, len(self.launches)])
+graphs.Graph.__init__ = noted
+def timed(name, fn):
+    def run(self):
+        t0 = time.perf_counter()
+        fn(self)
+        spent[name] = time.perf_counter() - t0
+    return run
+profile.start = timed("profiler_start_s", profile.start)
+profile.stop = timed("profiler_stop_s", profile.stop)
+t0 = time.perf_counter()
+try:
+    rc = cli.main(["ecloop"] + sys.argv[1:])
+except SystemExit as e:
+    rc = e.code
+main_s = time.perf_counter() - t0
+print(json.dumps({"rc": rc, "main_s": main_s, **spent,
+                  "launches": kernels.LAUNCHES,
+                  "widths": {k: sorted(v) for k, v in kernels.WIDTHS.items()},
+                  "captures": captures,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def cli_process(argv: list[str], trace_dir: str | None = None,
+                stdin: str | None = None) -> dict:
+    """The CLI's main(argv) in a process of its own (CLI_CHILD), with
+    ECLOOP_PROFILE=trace_dir when given and stdin from the file `stdin`,
+    within CLI_TIMEOUT_S: its stdout (without the last line), stderr,
+    wall s of the process, and the last line's figures."""
+    env = {k: v for k, v in os.environ.items() if k != "ECLOOP_PROFILE"}
+    if trace_dir:
+        env["ECLOOP_PROFILE"] = trace_dir
+    t0 = time.monotonic()
+    with open(stdin or os.devnull) as src:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_CHILD, *argv],
+                                cwd=ROOT, env=env, stdin=src,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    wall_s = time.monotonic() - t0
+    err = err.replace("\r", "\n")
+    if proc.returncode != 0 or not out.strip():
+        raise AssertionError(f"{argv[0]} process exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    body, _, last = out.rstrip("\n").rpartition("\n")
+    run = json.loads(last)
+    status = [ln for ln in err.splitlines() if " Mkeys/s ~ " in ln]
+    run.update(stdout=body + "\n" if body else "", stderr=err, wall_s=wall_s,
+               k_checked=int(status[-1].rsplit(" / ", 1)[1].split()[0]
+                             .replace(",", "")) if status else None)
+    return run
+
+
+def trace_figures(run: dict, trace_dir: str) -> dict:
+    """What the one trace file in trace_dir holds: its MB, the s its
+    write took (from the CLI's stderr line), its events, the card's
+    events (kernels, copies, fills) and every CUDA event, graph launches,
+    and per kernel of the port its events and those inside a graph
+    replay (a kernel whose correlation id is a cudaGraphLaunch call's)."""
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"trace files: {files}")
+    path = os.path.join(trace_dir, files[0])
+    m = TRACE_LINE.search(run["stderr"])
+    if not m or m.group(1) != path:
+        raise AssertionError(f"no trace line for {path} in stderr")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    replays = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and e.get("name", "").startswith(("cudaGraphLaunch",
+                                                 "cuGraphLaunch"))}
+    per_kernel = {}
+    for name, symbol in KERNEL_SYMBOLS.items():
+        ev = [e for e in events
+              if e.get("cat") == "kernel" and symbol in e.get("name", "")]
+        per_kernel[name] = {
+            "events": len(ev),
+            "in_replays": sum(e.get("args", {}).get("correlation") in replays
+                              for e in ev)}
+    return {"mb": os.path.getsize(path) / 1e6, "write_s": float(m.group(3)),
+            "events": len(events),
+            "device_events": sum(e.get("cat") in DEVICE_CATS for e in events),
+            "cuda_events": sum(e.get("cat") in CUDA_CATS for e in events),
+            "graph_launches": len(replays), "kernels": per_kernel}
+
+
+def traced_pair(argv: list[str], tmp: str, stdin: str | None = None):
+    """argv run untraced, then traced into tmp/<argv[0]>: both runs'
+    figures and the trace's.  Fails unless both exit 0 with the same
+    stdout, k_checked, kernel launches and graphs (count and launches
+    each captured)."""
+    plain = cli_process(argv, stdin=stdin)
+    trace_dir = os.path.join(tmp, argv[0])
+    traced = cli_process(argv, trace_dir, stdin=stdin)
+    for key in ("rc", "stdout", "k_checked", "launches"):
+        if plain[key] != traced[key]:
+            raise AssertionError(f"{argv[0]} traced: {key} {traced[key]!r:.300}"
+                                 f" != untraced {plain[key]!r:.300}")
+    if [c[1] for c in plain["captures"]] != [c[1] for c in traced["captures"]]:
+        raise AssertionError(f"{argv[0]}: graphs captured untraced "
+                             f"{plain['captures']}, traced {traced['captures']}")
+    if plain["rc"] != 0:
+        raise AssertionError(f"{argv[0]} exited {plain['rc']}")
+    return plain, traced, trace_figures(traced, trace_dir)
 
 
 def main() -> int:
@@ -1344,9 +1486,85 @@ def main() -> int:
                f"wall for both (start-up included); launches per process "
                f"{launches_procs}; card {card}")
 
-    # --- m: the profiler after k and l; every search width checked ------------------
+    # --- p: a trace of the whole command (ECLOOP_PROFILE) ---------------------------
+    def traced_path(name, argv, kernel_names, stdin=None):
+        """argv untraced and traced (traced_pair); fails unless the trace
+        holds each of kernel_names inside a graph replay.  Prints and
+        keeps the figures; returns the traced run."""
+        plain, traced, tr = traced_pair(argv, tmp, stdin)
+        for k in kernel_names:
+            if traced["launches"][k] < 1 or tr["kernels"][k]["in_replays"] < 1:
+                raise AssertionError(f"{name} trace: no {k} event inside a "
+                                     f"graph replay: {tr}")
+        for k in searched:
+            searched[k] |= set(traced["widths"][k])
+        traces[name] = {
+            "untraced": {k: plain[k] for k in ("main_s", "wall_s", "captures")},
+            "traced": {k: traced[k] for k in (
+                "main_s", "wall_s", "profiler_start_s", "profiler_stop_s",
+                "captures", "launches")}, "trace": tr}
+        phase("p", f"{name}: stdout, k_checked ({traced['k_checked']:,}), "
+                   f"launches and graphs equal traced and untraced; main() "
+                   f"{plain['main_s']:.3f} s untraced, {traced['main_s']:.3f} s "
+                   f"traced (x {traced['main_s'] / plain['main_s']:.2f}; "
+                   f"process wall {plain['wall_s']:.3f} / {traced['wall_s']:.3f}"
+                   f" s; profiler start {traced['profiler_start_s']:.3f} s, stop "
+                   f"{traced['profiler_stop_s']:.3f} s); trace {tr['mb']:.3f} MB "
+                   f"written in {tr['write_s']:.3f} s, {tr['events']:,} events, "
+                   f"{tr['device_events']:,} on the card, {tr['graph_launches']}"
+                   f" graph launches; per kernel trace events (in replays) "
+                   f"against kernels.LAUNCHES: " + ", ".join(
+                       f"{k} {v['events']} ({v['in_replays']}) / "
+                       f"{traced['launches'][k]}" for k, v in tr["kernels"].items())
+                   + "; graph captures (s, launches) untraced "
+                   f"{[[round(c[0], 3), c[1]] for c in plain['captures']]}, "
+                   f"traced {[[round(c[0], 3), c[1]] for c in traced['captures']]}"
+                   f"; card {card}")
+        return traced
+
+    traces = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = traced_path(f"add -r {PROFILE_RANGE}",
+                          ["add", "-f", PUZZLES, "-r", PROFILE_RANGE],
+                          ("hash160", "inv_mod_batch"))
+        found = {int(k, 16) for k in FOUND_LINE.findall(run["stdout"])}
+        if found != PROFILE_KEYS:
+            raise AssertionError(f"add -r {PROFILE_RANGE} traced: found "
+                                 f"{sorted(map(hex, found))}")
+        launches_add_traced = run["launches"]
+        run = traced_path("mul -a cu", ["mul", "-f", BW_HASH, "-a", "cu"],
+                          ("hash160", "inv_mod_batch", "mixed_add"), BW_PRIV)
+        lines = [ln for ln in run["stdout"].splitlines() if ln.startswith("addr")]
+        if (len(lines) != 1080 or sum(ln.startswith("addr33") for ln in lines)
+                != 540 or {int(ln.rsplit(" ", 1)[1], 16) for ln in lines}
+                != vector):
+            raise AssertionError(f"mul traced: {len(lines)} found")
+        launches_mul_traced = run["launches"]
+        blf_path = os.path.join(tmp, "puzzles.blf")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.run_blf_gen(cli.Args(["ecloop", "blf-gen", "-n", "160", "-o",
+                                      blf_path]), puzzle_text)
+        c936 = golden.addr33(golden.point_mul(0xC936)).hex()
+        trace_dir = os.path.join(tmp, "blf-check")
+        run = cli_process(["blf-check", "-f", blf_path, c936], trace_dir)
+        tr = trace_figures(run, trace_dir)
+        if (run["rc"] != 0 or run["stdout"] != f"{c936} FOUND\n"
+                or tr["cuda_events"] or run["cuda_initialized"]):
+            raise AssertionError(f"blf-check traced: rc {run['rc']}, "
+                                 f"{run['stdout']!r}, {tr}, card initialized "
+                                 f"{run['cuda_initialized']}")
+        traces["blf-check"] = {"traced": {k: run[k] for k in (
+            "main_s", "profiler_start_s", "profiler_stop_s")}, "trace": tr}
+    phase("p", f"add: puzzles 16-20 found traced; mul: 1080 found (540 + 540) "
+               f"traced; blf-check traced: FOUND, rc 0, {tr['events']} events, "
+               f"none of the card's, card never initialized, main() "
+               f"{run['main_s']:.3f} s (profiler start "
+               f"{run['profiler_start_s']:.3f} s, stop "
+               f"{run['profiler_stop_s']:.3f} s)")
+
+    # --- m: the profiler after k, l and p; every search width checked ---------------
     k1_after = device_ms(timed["hash160"][0], "hash160_kernel<true>")
-    phase("m", f"hash160 at n={HASH_N} after phases k and l: kernel "
+    phase("m", f"hash160 at n={HASH_N} after phases k, l and p: kernel "
                f"{k1_after:.4f} ms on the device (torch.profiler; phase 6: "
                f"{t['hash160'][0]:.4f} ms)")
     checked = {"hash160": set(hash_ns), "inv_mod_batch": set(inv_ns),
@@ -1360,7 +1578,7 @@ def main() -> int:
                                  f"{sorted(searched[name] - checked[name])} "
                                  f"that phases 1, 2 and a did not check")
     phase("m", "every width the searches launched a kernel at (every phase "
-               "from 3 through 6, and k and l) was held against the plain "
+               "from 3 through 6, and k, l and p) was held against the plain "
                "version: " + "; ".join(
                    f"{k} {sorted(v)}" for k, v in searched.items()))
 
@@ -1399,7 +1617,9 @@ def main() -> int:
                     "mult_verify": launches_verify[name],
                     "add_t_clamp": launches_clamp[name],
                     **{k: v["launches"][name] for k, v in split_runs.items()},
-                    "add_two_processes": launches_two[name]}
+                    "add_two_processes": launches_two[name],
+                    "add_traced": launches_add_traced[name],
+                    "mul_traced": launches_mul_traced[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": errs[name],
@@ -1437,7 +1657,8 @@ def main() -> int:
         "hash160_ms_after_splits": k1_after,
         "profiler_short_windows": SHORT_WINDOWS,
         "searched_widths": {k: sorted(v) for k, v in searched.items()},
-        "two_processes_s": two_procs_s, "bench_rows": rows, "bench_checks": checks,
+        "two_processes_s": two_procs_s, "whole_command_traces": traces,
+        "bench_rows": rows, "bench_checks": checks,
         "step_calls": step_calls, "capture_sync_error": sync_err,
         "isin_capture_error": isin_err,
         "gtable_sweep": sweep, "mult_verify": {

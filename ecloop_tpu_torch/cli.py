@@ -10,7 +10,8 @@ GPU that is an error, never a quiet run on the CPU.  The searches run
 over every visible GPU, or `-t n` of them (with `-device cpu`, over n
 CPU shards), and over several processes when ECLOOP_COORDINATOR,
 ECLOOP_NUM_PROCS and ECLOOP_PROC_ID say so (`parallel.multihost`).
-`blf-gen` and `blf-check` run on the host.
+`blf-gen` and `blf-check` run on the host.  ECLOOP_PROFILE=<dir> writes
+a torch.profiler trace of the whole command there (`whole_command_trace`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import locale
 import os
 import select
 import signal
+import socket
 import sys
 import termios
 import threading
@@ -32,6 +34,9 @@ from . import __version__, golden
 from .parallel import multihost
 
 GROUP_INV_SIZE = 2048             # reference GROUP_INV_SIZE: lowest range start
+# the commands that run on the -device device; blf-gen and blf-check
+# (and the usage text) run on the host
+DEVICE_COMMANDS = ("add", "mul", "rnd", "bench", "bench-gtable", "mult-verify")
 
 USAGE = """\
 ecloop-tpu-torch v{version} ~ secp256k1 key search on PyTorch + CUDA
@@ -68,6 +73,9 @@ ECLOOP_BENCH_B, _R, _ONLY, _SOL, _VERBOSE;
 bench-gtable: ECLOOP_GTABLE_WS, ECLOOP_BENCH_B; mult-verify:
 ECLOOP_VERIFY_N, ECLOOP_VERIFY_W.  Several processes (add, rnd -seed):
 ECLOOP_COORDINATOR=host:port ECLOOP_NUM_PROCS=P ECLOOP_PROC_ID=i.
+ECLOOP_MUL_INFLIGHT (mul jobs queued, 4), ECLOOP_BLF_PROBES (device
+probes of a .blf, 1-20), ECLOOP_NATIVE_BUILD=0 (do not compile the host
+library), ECLOOP_PROFILE=<dir> (a trace of the whole command).
 """
 
 
@@ -627,20 +635,58 @@ def run_mul(args: Args, lines) -> SearchRun:
                      device=devices[0])
 
 
+@contextlib.contextmanager
+def whole_command_trace(cmd: str | None, args: Args):
+    """With ECLOOP_PROFILE=<dir> set and not empty, a torch.profiler
+    trace of the block, written on every way out of it (a return,
+    SystemExit, an exception) as one Chrome-trace file per process,
+    <dir>/<host>.p<process index>.<pid>.pt.trace.json, which Perfetto
+    and TensorBoard's PyTorch plugin open; its path, size and the time
+    the write took go to stderr.  A device command on CUDA records the
+    host and the card; -device cpu, blf-gen, blf-check and the usage
+    text record the host only and leave the card alone.  Shapes, stacks
+    and memory are not recorded."""
+    out_dir = os.environ.get("ECLOOP_PROFILE")
+    if not out_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if (cmd in DEVICE_COMMANDS and (args.get_str("-device") or "cuda")
+            == "cuda" and torch.cuda.is_available()):
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{socket.gethostname()}.p"
+                            f"{multihost.process_index()}.{os.getpid()}"
+                            f".pt.trace.json")
+        t0 = time.perf_counter()
+        prof.export_chrome_trace(path)
+        print(f"profile: {path}, {os.path.getsize(path):,} bytes, written "
+              f"in {time.perf_counter() - t0:.3f} s", file=sys.stderr)
+
+
 def main(argv: list[str] | None = None) -> int:
     locale.setlocale(locale.LC_ALL, "")
     argv = list(sys.argv if argv is None else argv)
     args = Args(argv)
     cmd = argv[1] if len(argv) > 1 else None
     try:
-        several = multihost.init_from_env()
-    except ValueError as e:
-        _die(str(e))
-    try:
-        if several:
-            print(multihost.process_banner(len(select_devices(args))),
-                  file=sys.stderr)
-        return run_command(cmd, args, argv)
+        with whole_command_trace(cmd, args):
+            try:
+                several = multihost.init_from_env()
+            except ValueError as e:
+                _die(str(e))
+            if several:
+                print(multihost.process_banner(len(select_devices(args))),
+                      file=sys.stderr)
+            return run_command(cmd, args, argv)
     finally:
         multihost.leave()
 

@@ -135,11 +135,16 @@ def filter_from_hashes(hashes: np.ndarray) -> Filter:
 
 
 def load_filter(path: str) -> Filter:
+    """A .blf file's filter, or an exact one from a hash160 list.  A
+    .blf's device probe count is ECLOOP_BLF_PROBES when set and not
+    empty, else `bloom.adaptive_probe_count`, clamped to [1, 20]."""
     if path.endswith(".blf"):
         blf = bloom.BloomFilter.load(path)
+        env = os.environ.get("ECLOOP_BLF_PROBES")
+        n = int(env) if env else bloom.adaptive_probe_count(blf.bits)
         return Filter(mode="bloom", targets=None, blf=blf,
                       device_bits=blf.as_u32(), pow2_log2=None,
-                      blf_probes=bloom.adaptive_probe_count(blf.bits))
+                      blf_probes=max(1, min(20, n)))
     with open(path) as f:
         hashes = parse_hash_lines(f.read())
     if len(hashes) == 0:

@@ -5,8 +5,10 @@ independent C++ secp256k1 + hash160 oracle for re-deriving hits, bloom
 add and probe, and exact sorted-list membership.  It is built with the
 host C++ compiler into `build/ecloop_tpu_torch/` at first use, keyed by
 a hash of the source and flags, like the CUDA kernels (`_build.py`).
-Every caller has a pure-Python fallback: `available()` is false where
-no compiler or no library can be had.
+ECLOOP_NATIVE_BUILD=0 (any value but 1) compiles nothing: a library
+already built is loaded, and without one `available()` is false.  Every
+caller has a pure-Python fallback: `available()` is false where no
+compiler or no library can be had.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    path = build()
-    if path is None:
+    path = (build() if os.environ.get("ECLOOP_NATIVE_BUILD", "1") == "1"
+            else library_path())
+    if path is None or not os.path.exists(path):
         return None
     try:
         lib = ctypes.CDLL(path)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import collections
 import functools
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -34,7 +35,8 @@ from .common import Found, SearchConfig
 N = golden.N
 NLIMBS = fel.NLIMBS
 W = 14                   # window width: 19 windows, 311,277 table points
-INFLIGHT = 4             # jobs queued on the device before the oldest drains
+INFLIGHT = 4             # default of ECLOOP_MUL_INFLIGHT: jobs queued before
+                         # the oldest drains
 BUILD_CHUNK = 1 << 21    # chords per K2 call of the table build
 
 
@@ -315,9 +317,12 @@ class MulSearch:
 
     Keys go to the devices in jobs of `batch`: key j of a job on shard
     j // (batch/n), so the found set is the one-device engine's.  Up to
-    INFLIGHT jobs stay queued while the host cuts the next job's digits,
-    and each job's masks come back through pinned memory
-    (common.fetch_async)."""
+    ECLOOP_MUL_INFLIGHT jobs (INFLIGHT unless set; read here, at build)
+    stay queued, one depth for all shards, while the host cuts the next
+    job's digits, and each job's masks come back through pinned memory
+    (common.fetch_async).  Any depth is safe: every upload and every
+    fetch takes a pinned block of its own, which the caching host
+    allocator hands out again only once the copy queued on it is done."""
 
     def __init__(self, cfg: SearchConfig, filt: Filter, devices, w: int = W,
                  batch: int = 32768, raw: bool = False):
@@ -336,6 +341,7 @@ class MulSearch:
         self.shards = [MulShard(d, cfg, filt, w, batch // n) for d in devices]
         self.k_checked = 0
         self.k_found = 0
+        self.depth = int(os.environ.get("ECLOOP_MUL_INFLIGHT", INFLIGHT))
         self._pending = collections.deque()
 
     def _launch(self, dig: np.ndarray) -> list:
@@ -368,8 +374,9 @@ class MulSearch:
     def run_words(self, words: np.ndarray, on_found=None,
                   drain: bool = True) -> list[Found]:
         """Queue jobs of `batch` keys given as (B, 4) u64 word rows
-        reduced mod n.  With drain=False up to INFLIGHT jobs stay queued
-        across calls; the caller ends with flush()."""
+        reduced mod n.  With drain=False up to `depth` jobs
+        (ECLOOP_MUL_INFLIGHT) stay queued across calls; the caller ends
+        with flush()."""
         found = []
         d = n_windows(self.w)
         for off in range(0, len(words), self.batch):
@@ -379,7 +386,7 @@ class MulSearch:
             dig = np.zeros((d, self.batch), dtype=np.int32)
             dig[:, :len(job)] = window_digits_words(job, self.w).T
             self._pending.append((job, self._launch(dig), on_found))
-            while len(self._pending) > INFLIGHT:
+            while len(self._pending) > self.depth:
                 found.extend(self._drain_one())
         if drain:
             found.extend(self.flush())
