@@ -29,7 +29,15 @@ On the card every search call runs from one CUDA graph per shard
 steps at 32 x 4096 in list, pow2, bloom and -endo modes, and at
 512 x 4096) and one 32,768-key `mul` job against the eager steps bit
 for bit and times both (capture, replay wall, device time, busy share,
-keys/s); phases n and k fail if a kernel launches outside a replay.
+keys/s, and the step's share of sol.step_budget); phases n and k fail
+if a kernel launches outside a replay.  Phase 7 holds K4 (the `add`
+step's chords, csrc/add_chords.cu) and K5 (the prefilter probe with its
+mask packing, csrc/probe_pack.cu) bit for bit against their plain forms
+at every step geometry and key count the searches run, -endo and plain,
+in the three probe modes (compare lists of 0-2,048 first words, bloom
+at 1, 3 and 20 probes and over 3 x 2^32 + 64 bits, pow2 on each side of
+log2_bits 32), with a (0, 0) center and zero inverses, and times each
+against its plain form and its bound.
 Phase p runs `add -r 8000:fffff` and `mul` on the 1080-key vector
 through the CLI in processes of their own, untraced and with
 ECLOOP_PROFILE (a torch.profiler trace of the whole command): stdout,
@@ -91,7 +99,20 @@ PROFILE_KEYS = {k for k in NINE_KEYS if k <= 0xFFFFF}
 CLI_TIMEOUT_S = 600      # phase p: each traced or untraced CLI process's limit
 # phase p: the kernels' names in a trace (the __global__ functions)
 KERNEL_SYMBOLS = {"hash160": "hash160_kernel", "inv_mod_batch": "inv_batch_kernel",
-                  "mixed_add": "mixed_add_kernel"}
+                  "mixed_add": "mixed_add_kernel", "add_chords": "chord_",
+                  "probe_pack": "probe_pack_kernel"}
+# the kernels each search path launches (the bench and its family launch
+# K1-K3 only)
+ADD_KERNELS = ("hash160", "inv_mod_batch", "add_chords", "probe_pack")
+MUL_KERNELS = ("hash160", "inv_mod_batch", "mixed_add", "probe_pack")
+BENCH_KERNELS = ("hash160", "inv_mod_batch", "mixed_add")
+# phase 7: K5's cases, (mode, argument): compare lists of that many first
+# words, the exact bloom probe at that many probes over 64,000 bits (21:
+# 20 probes over 3 x 2^32 + 64 bits, past 32-bit indices), pow2 at that
+# log2_bits
+PROBE_CASES = (("compare", 0), ("compare", 1), ("compare", 160),
+               ("compare", 2048), ("exact", 1), ("exact", 3), ("exact", 20),
+               ("exact", 21), ("pow2", 32), ("pow2", 33))
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 CUDA_CATS = DEVICE_CATS | {"cuda_runtime", "cuda_driver", "gpu_user_annotation"}
 TRACE_LINE = re.compile(r"^profile: (.+), ([\d,]+) bytes, written in ([\d.]+) s$",
@@ -267,7 +288,8 @@ def ptxas_report(path: str) -> dict:
     from the nvcc -Xptxas -v log of the build."""
     forms = {"hash160": ("_addr65", "_addr33"),
              "mixed_add": ("_incomplete", "_complete"),
-             "inv_batch": ("", "")}
+             "inv_batch": ("", ""), "chord_dx": ("", ""),
+             "chord_points": ("", ""), "probe_pack": ("", "")}
     out, name = {}, None
     with open(path) as f:
         for line in f:
@@ -340,7 +362,7 @@ def mul_run(cli, kernels, lines):
     launches = dict(kernels.LAUNCHES)
     if run.device.type != "cuda":
         raise AssertionError(f"mul ran on {run.device}")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in MUL_KERNELS) < 1:
         raise AssertionError(f"a kernel of the mul path never ran: {launches}")
     return run, launches
 
@@ -607,7 +629,8 @@ def trace_figures(run: dict, trace_dir: str) -> dict:
     write took (from the CLI's stderr line), its events, the card's
     events (kernels, copies, fills) and every CUDA event, graph launches,
     and per kernel of the port its events and those inside a graph
-    replay (a kernel whose correlation id is a cudaGraphLaunch call's)."""
+    replay (a kernel whose correlation id is a cudaGraphLaunch call's),
+    and the other kernels inside the replays by name and count."""
     files = os.listdir(trace_dir)
     if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
         raise AssertionError(f"trace files: {files}")
@@ -621,6 +644,11 @@ def trace_figures(run: dict, trace_dir: str) -> dict:
                if e.get("cat") in ("cuda_runtime", "cuda_driver")
                and e.get("name", "").startswith(("cudaGraphLaunch",
                                                  "cuGraphLaunch"))}
+    other = collections.Counter(
+        e.get("name", "")[:60] for e in events
+        if e.get("cat") == "kernel"
+        and e.get("args", {}).get("correlation") in replays
+        and not any(s in e.get("name", "") for s in KERNEL_SYMBOLS.values()))
     per_kernel = {}
     for name, symbol in KERNEL_SYMBOLS.items():
         ev = [e for e in events
@@ -633,7 +661,8 @@ def trace_figures(run: dict, trace_dir: str) -> dict:
             "events": len(events),
             "device_events": sum(e.get("cat") in DEVICE_CATS for e in events),
             "cuda_events": sum(e.get("cat") in CUDA_CATS for e in events),
-            "graph_launches": len(replays), "kernels": per_kernel}
+            "graph_launches": len(replays), "kernels": per_kernel,
+            "other_replay_kernels": dict(other)}
 
 
 def traced_pair(argv: list[str], tmp: str, stdin: str | None = None):
@@ -654,6 +683,54 @@ def traced_pair(argv: list[str], tmp: str, stdin: str | None = None):
     if plain["rc"] != 0:
         raise AssertionError(f"{argv[0]} exited {plain['rc']}")
     return plain, traced, trace_figures(traced, trace_dir)
+
+
+def chord_inputs(m: int, k: int, dev):
+    """K4's inputs for an `add` step of m centers x k keys from key
+    0x8000, with center 1 stored as (0, 0) (a center at infinity):
+    [cx, cy, tx, ty, dpx, dpy] on dev."""
+    from ecloop_tpu_torch import fel
+    from ecloop_tpu_torch.search import add
+    from ecloop_tpu_torch.search.common import SearchConfig
+
+    cfg = SearchConfig(range_s=0x8000, range_e=0xFFFFFF, centers=m, group_k=k)
+    cx, cy = add.center_points(cfg, 0x8000)
+    cx[1], cy[1] = 0, 0
+    table = add._cached_table(cfg.stride, k, cfg.keys_per_step)
+    return [fel.from_last(a, dev) for a in (cx, cy, *table)]
+
+
+def probe_case(mode: str, arg: int, dev, seed: int):
+    """K5's filter, bits and first words for a case of PROBE_CASES: random
+    targets for compare mode; dense random bits (3/4 set, so that keys
+    pass every count of probes) for the exact and pow2 modes."""
+    import numpy as np
+    import torch
+    from ecloop_tpu_torch import bloom, filters
+
+    if mode == "compare":
+        targets = np.random.default_rng(seed + arg).integers(
+            0, 1 << 32, size=(arg, 5), dtype=np.uint64).astype(np.uint32)
+        filt = filters.filter_from_hashes(targets)
+        return filt, torch.zeros(1, dtype=torch.int32, device=dev), \
+            filt.first_words(dev)
+    if mode == "pow2":
+        filt = filters.Filter(mode="list", targets=None, blf=None,
+                              device_bits=None, pow2_log2=arg)
+        words = 1 << (arg - 5)
+    else:
+        nbits = 64 * 1000 if arg <= 20 else 3 * (1 << 32) + 64
+        filt = filters.Filter(mode="bloom", targets=None,
+                              blf=bloom.BloomFilter(nbits // 64),
+                              device_bits=None, pow2_log2=None,
+                              blf_probes=min(arg, 20))
+        words = nbits // 32
+    g = torch.Generator(device=dev).manual_seed(seed + arg)
+    bits = torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
+                         device=dev, generator=g)
+    bits |= torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
+                          device=dev, generator=g)
+    return filt, bits, None
 
 
 def main() -> int:
@@ -838,7 +915,7 @@ def main() -> int:
         raise AssertionError(f"found {sorted(map(hex, privs))}")
     if run.k_checked != 16_777_216:
         raise AssertionError(f"k_checked {run.k_checked}")
-    if min(launches_add["hash160"], launches_add["inv_mod_batch"]) < 1:
+    if min(launches_add[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches_add}")
     rate = run.k_checked / run.seconds
     add_s = run.seconds
@@ -926,7 +1003,7 @@ def main() -> int:
         raise AssertionError(f"rnd found {sorted(map(hex, privs))}")
     if run.k_checked != 16_777_216:
         raise AssertionError(f"rnd k_checked {run.k_checked}")
-    if min(launches_rnd["hash160"], launches_rnd["inv_mod_batch"]) < 1:
+    if min(launches_rnd[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches_rnd}")
     phase("e", f"rnd -r 8000:ffffff (24-bit window, one pass): 9/9 keys, "
                f"k_checked {run.k_checked:,} in {run.seconds:.3f} s = "
@@ -1018,7 +1095,7 @@ def main() -> int:
         raise AssertionError(f"add -c found {run.found}")
     if run.k_checked != 16_777_216 or saved["k_found"] != len(want):
         raise AssertionError(f"add -c k_checked {run.k_checked}, saved {saved}")
-    if min(launches_resume["hash160"], launches_resume["inv_mod_batch"]) < 1:
+    if min(launches_resume[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: "
                              f"{launches_resume}")
     phase("g", f"add -r 8000:ffffff -c from key {RESUME_KEY:#x}: "
@@ -1154,16 +1231,35 @@ def main() -> int:
         figs = {"graph": graph, "graph_t_steps": graph_t,
                 "eager": call_figures(eager, t_, keys, 3)}
         figs["graph_t_steps"]["capture_s"] = whole.capture_s
+        # the step's operations (sol.step_budget, the compare probe) at the
+        # card's integer rate, against the graph's device time
+        budget_ms = (sol.step_budget(cfg, step_leaf, probe="probe_cmp")[
+            "total_ops_per_point"] * keys / int_ops * 1e3)
+        figs["graph"]["step_budget_ms"] = budget_ms
         step_calls[name].update(figs)
         for k, f in figs.items():
             phase("n", f"add {name} per step, {k}: {show(f)}; card {card}")
+        dev_ms = figs["graph"]["device_ms"]
+        phase("n", f"add {name}: sol.step_budget {budget_ms:.4f} ms per step "
+                   f"(operations), " + ("device time not measured" if dev_ms
+                                        is None else f"share {budget_ms / dev_ms:.1%}"
+                                        f" of the graph's device time"))
 
     base_cfg = common.SearchConfig(range_s=0x8000, range_e=0xFFFFFF)
-    add_timing("list", add_call("list", base_cfg, puzzles), base_cfg)
-    add_call("pow2", base_cfg, puzzles, cmp_max="0")
-    add_call("bloom", base_cfg, blf_filt)
-    add_call("endo", dataclasses.replace(base_cfg, endo=True), puzzles)
-    add_timing("list_512", add_call("list_512", wide_cfg, puzzles), wide_cfg)
+    step_leaf = sol.leaf_budgets()
+    # every geometry x prefilter mode x -endo; the list mode without
+    # -endo (the CLI's default on the puzzle list) is timed
+    for geo, gcfg in (("", base_cfg), ("_512", wide_cfg)):
+        for mode, filt, cmp_max in (("list", puzzles, None),
+                                    ("pow2", puzzles, "0"),
+                                    ("bloom", blf_filt, None)):
+            for endo in (False, True):
+                cfg = dataclasses.replace(gcfg, endo=endo)
+                name = f"{mode}{geo}{'_endo' if endo else ''}"
+                call = add_call(name, cfg, filt, cmp_max)
+                if mode == "list" and not endo:
+                    add_timing(name, call, cfg)
+                del call
 
     mfilt = filters.load_filter(BW_HASH)
     mwords = mul.parse_hex_words(bw_lines + lines[:MUL_N - len(bw_lines)])
@@ -1286,6 +1382,119 @@ def main() -> int:
                f"inversion): kernel {chain_ms:.4f} ms on the device "
                f"(torch.profiler, mean of 20 calls); card {card}")
 
+    # --- 7: K4 and K5 against their plain forms at every searched width, timed ---
+    # K4 at each step geometry the searches run (every shard of phases 3-5,
+    # e-g, k, l and p is 32 x 4096; phase n's wide call 512 x 4096), -endo
+    # and plain, with a (0, 0) center and four zero inverses; K5 at every
+    # key count they probe, in every mode of PROBE_CASES
+    gk = base_cfg.group_k
+    chord_ns = sorted({HASH_N} | {w for w, _ in split_widths})
+    k4_cases, k5_cases, errs["add_chords"], errs["probe_pack"] = {}, {}, 0, 0
+    for keys in chord_ns:
+        cx, cy, tx, ty, dpx, dpy = chord_inputs(keys // gk, gk, dev)
+        nh = keys // 2
+        for endo in (False, True):
+            dx = kernels.chord_dx(cx, tx, dpx)
+            inv = kernels.inv_mod_batch(dx)
+            inv[:, [0, 7, nh - 1, nh + 2]] = 0
+            got_dx = ecc.chord_dx_plain(cx, tx, dpx)
+            got = kernels.chord_points(cx, cy, tx, ty, dpx, dpy, inv, endo, endo)
+            want = ecc.chord_points_plain(cx, cy, tx, ty, dpx, dpy, inv, endo,
+                                          endo)
+            torch.cuda.synchronize()
+            for a, b in zip((dx,) + got[0] + got[1] + got[2:],
+                            (got_dx,) + want[0] + want[1] + want[2:]):
+                e = int((a - b).abs().max())
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K4 differs from its plain form at "
+                                         f"{keys} keys, endo={endo} (max abs "
+                                         f"err {e})")
+                errs["add_chords"] = max(errs["add_chords"], e)
+            acc = sol.chord_account(keys // gk, gk, endo, endo)
+            b_dx, b_pt = (sol.bound(*acc[x], int_ops)
+                          for x in ("chord_dx", "chord_points"))
+            dx_ms = device_ms(lambda: kernels.chord_dx(cx, tx, dpx),
+                              "chord_dx_kernel")
+            pt_ms = device_ms(lambda: kernels.chord_points(
+                cx, cy, tx, ty, dpx, dpy, inv, endo, endo), "chord_points_kernel")
+            call, plain = paired_ms(
+                lambda: kernels.chord_points(cx, cy, tx, ty, dpx, dpy,
+                                             kernels.chord_dx(cx, tx, dpx),
+                                             endo, endo),
+                lambda: ecc.chord_points_plain(cx, cy, tx, ty, dpx, dpy,
+                                               ecc.chord_dx_plain(cx, tx, dpx),
+                                               endo, endo))
+            k_ms, b_ms = dx_ms + pt_ms, b_dx[0] + b_pt[0]
+            k4_cases[f"{keys}{'_endo' if endo else ''}"] = {
+                "ms": k_ms, "ms_dx": dx_ms, "ms_points": pt_ms, "call_ms": call,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_ms_dx": b_dx[0],
+                "bound_ms_points": b_pt[0], "bound_by": b_pt[1],
+                "bytes": acc["chord_dx"][0] + acc["chord_points"][0],
+                "ops": acc["chord_dx"][1] + acc["chord_points"][1]}
+            phase("7", f"add_chords at {keys // gk} x {gk} ({'-endo' if endo else 'plain'}):"
+                       f" == plain (a (0, 0) center, 4 zero inverses; max abs err "
+                       f"{errs['add_chords']}, tolerance 0); kernel {k_ms:.4f} ms on "
+                       f"the device (chord_dx {dx_ms:.4f} + chord_points "
+                       f"{pt_ms:.4f}, torch.profiler), {call:.4f} ms per wrapper "
+                       f"pair, plain {plain:.4f} ms (CUDA events), bound "
+                       f"{b_ms:.4f} ms ({b_dx[1]} / {b_pt[1]}), share "
+                       f"{b_ms / k_ms:.1%}; card {card}")
+            if b_ms > k_ms:
+                raise AssertionError(f"add_chords runs in {k_ms:.4f} ms, under "
+                                     f"its least time {b_ms:.4f} ms")
+    for name in ("chord_dx", "chord_points", "probe_pack"):
+        phase("7", f"ptxas {name}: {ptxas.get(name)}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in hash_ns:
+        h0 = torch.randint(0, 1 << 32, (5, n), dtype=torch.int64, device=dev,
+                           generator=gen)
+        for mode, arg in PROBE_CASES:
+            filt, bits, fw = probe_case(mode, arg, dev, SEED)
+            h = h0.clone()
+            if fw is not None and fw.numel():         # plant hits
+                h[0, :n // 4] = fw[torch.arange(n // 4, device=dev) % fw.numel()]
+            got = kernels.probe_pack(filt, h, bits, fw)
+            want = filters.probe_pack_plain(filt, h, bits, fw)
+            torch.cuda.synchronize()
+            e = int((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 differs from its plain form at {n} "
+                                     f"keys, {mode} {arg} (max abs err {e})")
+            errs["probe_pack"] = max(errs["probe_pack"], e)
+            hits = int(np.unpackbits(got.cpu().numpy().astype("<u4").view(
+                np.uint8)).sum())
+            if (hits == 0) != (mode == "compare" and arg == 0):
+                raise AssertionError(f"K5 {mode} {arg}: {hits} hits")
+            reads = sol.probe_reads(filt, h, bits, fw)
+            b_ms, b_by = sol.bound(*sol.probe_pack_account(
+                n, mode, reads, 0 if fw is None else fw.numel(), bits.numel()),
+                int_ops)
+            k_ms = device_ms(lambda: kernels.probe_pack(filt, h, bits, fw),
+                             "probe_pack_kernel")
+            p_ms = time_ms(lambda: filters.probe_pack_plain(filt, h, bits, fw))
+            k5_cases[f"{n}_{mode}_{arg}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "hits": hits, "probe_reads": reads}
+            phase("7", f"probe_pack at {n} keys, {mode} {arg}: == plain ({hits} "
+                       f"hits, {reads} bit words read; max abs err "
+                       f"{errs['probe_pack']}, tolerance 0); kernel {k_ms:.4f} ms"
+                       f" on the device (torch.profiler), plain {p_ms:.4f} ms "
+                       f"(CUDA events), bound {b_ms:.4f} ms ({b_by}), share "
+                       f"{b_ms / k_ms:.1%}; card {card}")
+            if b_ms > k_ms:
+                raise AssertionError(f"probe_pack runs in {k_ms:.4f} ms, under "
+                                     f"its least time {b_ms:.4f} ms")
+            del bits, h
+    # the report's rows: what the default `add` step runs (32 x 4096, the
+    # puzzle list's compare probe at 160 first words)
+    main4, main5 = k4_cases[str(HASH_N)], k5_cases[f"{HASH_N}_compare_160"]
+    t["add_chords"] = (main4["ms"], main4["plain_ms"])
+    call_ms["add_chords"] = main4["call_ms"]
+    bounds["add_chords"] = (main4["bound_ms"], main4["bound_by"])
+    t["probe_pack"] = (main5["ms"], main5["plain_ms"])
+    call_ms["probe_pack"] = None
+    bounds["probe_pack"] = (main5["bound_ms"], main5["bound_by"])
+
     # --- h: bench at the card's default B ---------------------------------------------
     searched = {k: set(v) for k, v in kernels.WIDTHS.items()}
     kernels.reset_launches()
@@ -1294,7 +1503,7 @@ def main() -> int:
                                emit=lambda line: phase("h", line))
     bench_s = time.monotonic() - t0
     launches_bench = dict(kernels.LAUNCHES)
-    if min(launches_bench.values()) < 1:
+    if min(launches_bench[k] for k in BENCH_KERNELS) < 1:
         raise AssertionError(f"a kernel of the bench never ran: {launches_bench}")
     for row in rows:
         if not row["share"] <= 1.0:
@@ -1418,8 +1627,7 @@ def main() -> int:
                             "seconds": time.monotonic() - t0,
                             "k_checked": eng.k_checked,
                             "launches": dict(kernels.LAUNCHES)}
-        if min(kernels.LAUNCHES["hash160"],
-               kernels.LAUNCHES["inv_mod_batch"]) < n:
+        if min(kernels.LAUNCHES[k] for k in ADD_KERNELS) < n:
             raise AssertionError(f"{name}: a shard's kernel never ran: "
                                  f"{kernels.LAUNCHES}")
         privs = {f.priv for f in found}
@@ -1444,7 +1652,8 @@ def main() -> int:
                                  "k_checked": meng.k_checked,
                                  "launches": dict(kernels.LAUNCHES)}
     check_vector(found, vector)
-    if meng.k_checked != 1080 or min(kernels.LAUNCHES.values()) < 2:
+    if meng.k_checked != 1080 or min(kernels.LAUNCHES[k]
+                                     for k in MUL_KERNELS) < 2:
         raise AssertionError(f"sharded mul: k_checked {meng.k_checked}, "
                              f"launches {kernels.LAUNCHES}")
     a1, a2, a4, m2 = (split_runs[k] for k in (
@@ -1472,7 +1681,7 @@ def main() -> int:
     for i, r in enumerate(procs_out):
         if r["k_checked"] != 16_777_216:
             raise AssertionError(f"process {i}: k_checked {r['k_checked']}")
-        if min(r["launches"]["hash160"], r["launches"]["inv_mod_batch"]) < 1:
+        if min(r["launches"][k] for k in ADD_KERNELS) < 1:
             raise AssertionError(f"process {i}: a kernel never ran: "
                                  f"{r['launches']}")
     if sets[0] & sets[1] or sets[0] | sets[1] != NINE_KEYS:
@@ -1516,6 +1725,7 @@ def main() -> int:
                    f"against kernels.LAUNCHES: " + ", ".join(
                        f"{k} {v['events']} ({v['in_replays']}) / "
                        f"{traced['launches'][k]}" for k, v in tr["kernels"].items())
+                   + f"; other kernels in the replays {tr['other_replay_kernels']}"
                    + "; graph captures (s, launches) untraced "
                    f"{[[round(c[0], 3), c[1]] for c in plain['captures']]}, "
                    f"traced {[[round(c[0], 3), c[1]] for c in traced['captures']]}"
@@ -1526,14 +1736,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run = traced_path(f"add -r {PROFILE_RANGE}",
                           ["add", "-f", PUZZLES, "-r", PROFILE_RANGE],
-                          ("hash160", "inv_mod_batch"))
+                          ADD_KERNELS)
+        # inside an `add` replay only K1, K2, K4, K5 and copies run: no
+        # plain chord, probe or pack op is left on the card's path
+        plain_ops = {k: v for k, v in traces[f"add -r {PROFILE_RANGE}"][
+            "trace"]["other_replay_kernels"].items() if "memcpy" not in k.lower()}
+        if plain_ops:
+            raise AssertionError(f"add trace: kernels other than the port's "
+                                 f"inside the graph replays: {plain_ops}")
         found = {int(k, 16) for k in FOUND_LINE.findall(run["stdout"])}
         if found != PROFILE_KEYS:
             raise AssertionError(f"add -r {PROFILE_RANGE} traced: found "
                                  f"{sorted(map(hex, found))}")
         launches_add_traced = run["launches"]
         run = traced_path("mul -a cu", ["mul", "-f", BW_HASH, "-a", "cu"],
-                          ("hash160", "inv_mod_batch", "mixed_add"), BW_PRIV)
+                          MUL_KERNELS, BW_PRIV)
         lines = [ln for ln in run["stdout"].splitlines() if ln.startswith("addr")]
         if (len(lines) != 1080 or sum(ln.startswith("addr33") for ln in lines)
                 != 540 or {int(ln.rsplit(" ", 1)[1], 16) for ln in lines}
@@ -1568,7 +1785,8 @@ def main() -> int:
                f"{k1_after:.4f} ms on the device (torch.profiler; phase 6: "
                f"{t['hash160'][0]:.4f} ms)")
     checked = {"hash160": set(hash_ns), "inv_mod_batch": set(inv_ns),
-               "mixed_add": {MUL_N, HASH_N, VERIFY_N}}
+               "mixed_add": {MUL_N, HASH_N, VERIFY_N},
+               "add_chords": set(chord_ns), "probe_pack": set(hash_ns)}
     for name in searched:
         searched[name] |= kernels.WIDTHS[name]
         for r in procs_out:
@@ -1576,9 +1794,9 @@ def main() -> int:
         if not searched[name] <= checked[name]:
             raise AssertionError(f"the searches ran {name} at widths "
                                  f"{sorted(searched[name] - checked[name])} "
-                                 f"that phases 1, 2 and a did not check")
+                                 f"that phases 1, 2, a and 7 did not check")
     phase("m", "every width the searches launched a kernel at (every phase "
-               "from 3 through 6, and k, l and p) was held against the plain "
+               "from 3 through 7, and k, l and p) was held against the plain "
                "version: " + "; ".join(
                    f"{k} {sorted(v)}" for k, v in searched.items()))
 
@@ -1650,6 +1868,15 @@ def main() -> int:
               plain_ms_complete=t["mixed_add_complete"][1],
               bound_ms_complete=bounds["mixed_add_complete"][0],
               ptxas={k: v for k, v in ptxas.items() if "mixed_add" in k}),
+        entry("add_chords", "add_chords", "ecloop_tpu_torch/csrc/add_chords.cu",
+              "ecloop_tpu/search/add.py:136 (make_step's chords and endo "
+              "synthesis, compiled by XLA around the Pallas kernels)",
+              cases=k4_cases,
+              ptxas={k: v for k, v in ptxas.items() if "chord" in k}),
+        entry("probe_pack", "probe_pack", "ecloop_tpu_torch/csrc/probe_pack.cu",
+              "ecloop_tpu/search/add.py:220 (make_step's device_probe and "
+              "_pack_mask, compiled by XLA)", cases=k5_cases,
+              ptxas={k: v for k, v in ptxas.items() if "probe" in k}),
     ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
         "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
         "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,

@@ -21,7 +21,8 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("hash160.cu", "inv_batch.cu", "mixed_add.cu")
+SOURCES = ("hash160.cu", "inv_batch.cu", "mixed_add.cu", "add_chords.cu",
+           "probe_pack.cu")
 HEADERS = ("field.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ecloop_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,5 +110,13 @@ def lib() -> ctypes.CDLL:
         cdll.ecl_current_device.restype = ctypes.c_int
         cdll.ecl_mixed_add.argtypes = [vp] * 7 + [ll, ctypes.c_int, vp]
         cdll.ecl_mixed_add.restype = ctypes.c_int
+        cdll.ecl_chord_dx.argtypes = [vp] * 4 + [ll, ll, vp]
+        cdll.ecl_chord_dx.restype = ctypes.c_int
+        cdll.ecl_chord_points.argtypes = [vp] * 14 + [ll, ll, vp]
+        cdll.ecl_chord_points.restype = ctypes.c_int
+        cdll.ecl_probe_pack.argtypes = [vp, ll, ctypes.c_int, vp,
+                                        ctypes.c_ulonglong, ctypes.c_int,
+                                        ctypes.c_int, vp, ll, vp, vp]
+        cdll.ecl_probe_pack.restype = ctypes.c_int
         _lib = cdll
     return _lib

@@ -95,6 +95,50 @@ def proj_to_affine_rows(x, y, z, inv=None):
     return fel.mul_mod(x, zinv), fel.mul_mod(y, zinv)
 
 
+# --- the `add` step's chords (plain forms of K4, csrc/add_chords.cu) -------------
+
+def chord_dx_plain(cx, tx, dpx):
+    """The batch that the `add` step inverts, from its (16, M) centers,
+    (16, K/2) table T[j] = (j+1)*s*G and (16,) advance point D: the
+    chords' tx[j] - cx[m] at m*K/2 + j, then D.x - cx[m] at M*K/2 + m;
+    (16, M*K/2 + M)."""
+    dx = fel.sub_mod(tx[:, None, :], cx[:, :, None])    # (16, M, K/2)
+    dxc = fel.sub_mod(dpx[:, None], cx)                 # (16, M)
+    return torch.cat([dx.reshape(fel.NLIMBS, -1), dxc], dim=1)
+
+
+def chord_points_plain(cx, cy, tx, ty, dpx, dpy, inv, need_beta: bool,
+                       need_neg: bool):
+    """From the inverses of `chord_dx_plain`'s batch: the step's M*K
+    points C[m] + (i - K/2)*s*G at flat index m*K + i and the advanced
+    centers C[m] + D.  The mirror neighbours C - T[j] share T[j].x, so
+    one inverse serves the +- pair.  Returns ((x, [beta*x, beta^2*x]),
+    (y, [-y]), ncx, ncy), the bracketed rows where asked (the endo
+    variants' coordinates, golden.endo_points)."""
+    m_, k2 = cx.shape[1], tx.shape[1]
+    nh = m_ * k2
+    cxb, cyb = cx[:, :, None], cy[:, :, None]           # (16, M, 1)
+    txb, tyb = tx[:, None, :], ty[:, None, :]           # (16, 1, K/2)
+    idx = inv[:, :nh].reshape(fel.NLIMBS, m_, k2)
+    xp, yp = affine_add_rows(cxb, cyb, txb, tyb, idx)
+    xm, ym = affine_add_rows(cxb, cyb, txb, fel.neg_mod(tyb), idx)
+    # offsets 0..K-1, center at h = K/2:
+    #   [flip(minus: h-1..0), center, plus[:-1]: h+1..K-1]
+    px = torch.cat([xm.flip(2), cxb, xp[:, :, :k2 - 1]],
+                   dim=2).reshape(fel.NLIMBS, -1)
+    py = torch.cat([ym.flip(2), cyb, yp[:, :, :k2 - 1]],
+                   dim=2).reshape(fel.NLIMBS, -1)
+    ncx, ncy = affine_add_rows(cx, cy, dpx[:, None], dpy[:, None],
+                               inv[:, nh:])
+    xs, ys = (px,), (py,)
+    if need_beta:
+        xs += (fel.mul_mod(px, fel.const(golden.BETA1, px)),
+               fel.mul_mod(px, fel.const(golden.BETA2, px)))
+    if need_neg:
+        ys += (fel.neg_mod(py),)
+    return xs, ys, ncx, ncy
+
+
 # --- affine batches (table construction helpers) -------------------------------
 
 def affine_dbl(px, py, inv_2y):

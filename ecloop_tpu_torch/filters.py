@@ -92,6 +92,21 @@ def probe_first_words(h0: torch.Tensor,
     return first_words[i] == h0
 
 
+def pack_mask(bits: torch.Tensor) -> torch.Tensor:
+    """bool bits (flat order kept) -> (B//32,) int64 words < 2^32,
+    little-endian bit order."""
+    b = bits.reshape(-1, 32).to(torch.int64)
+    shifts = torch.arange(32, device=bits.device)
+    return (b << shifts).sum(dim=-1)
+
+
+def probe_pack_plain(filt: Filter, h: torch.Tensor, bits: torch.Tensor,
+                     first_words: torch.Tensor | None = None) -> torch.Tensor:
+    """(5, B) hash words -> (B/32,) packed hit words of filt's device
+    probe: the plain form of K5 (csrc/probe_pack.cu)."""
+    return pack_mask(filt.device_probe(h, bits, first_words))
+
+
 def _h160_key(h: np.ndarray) -> int:
     v = 0
     for w in h:

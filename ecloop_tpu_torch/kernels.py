@@ -4,6 +4,12 @@
   K1  addr33_hash_rows / addr65_hash_rows  -> csrc/hash160.cu
   K2  inv_mod_batch                        -> csrc/inv_batch.cu
   K3  proj_add_affine                      -> csrc/mixed_add.cu
+  K4  chord_dx, chord_points               -> csrc/add_chords.cu
+  K5  probe_pack                           -> csrc/probe_pack.cu
+
+K1-K3 port the JAX package's Pallas kernels; K4 and K5 port the stages
+of its `add` step that XLA compiles around them (the chords with the
+endomorphism rows, and the prefilter probe with the mask packing).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the kernel on its device's current stream, or raises.
@@ -23,10 +29,11 @@ import contextlib
 
 import torch
 
-from . import _build, ecc, fel, hash160
+from . import _build, ecc, fel, filters, hash160
 
 NLIMBS = 16
-LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0}
+LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0,
+            "add_chords": 0, "probe_pack": 0}
 WIDTHS = {k: set() for k in LAUNCHES}
 _recorder: list | None = None
 
@@ -181,3 +188,134 @@ def proj_add_affine(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
                 out.data_ptr(), n, int(complete))
         _count("mixed_add", n)
     return out[0], out[1], out[2]
+
+
+def _check_rows(name: str, t: torch.Tensor, ndim: int) -> None:
+    _check_limbs(name, t)
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dimensions, got "
+                         f"{tuple(t.shape)}")
+
+
+_CHORD_DIMS = {"cx": 2, "cy": 2, "tx": 2, "ty": 2, "dpx": 1, "dpy": 1}
+
+
+def _check_chords(**named) -> None:
+    """The step's centers cx, cy (16, M), table tx, ty (16, K/2) and
+    advance point dpx, dpy (16,), all on cx's device; each y has its x's
+    shape."""
+    dev = named["cx"].device
+    for name, t in named.items():
+        _check_rows(name, t, _CHORD_DIMS[name])
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, cx on {dev}")
+    for x, y in (("cx", "cy"), ("tx", "ty"), ("dpx", "dpy")):
+        if y in named:
+            _check_same(named[x], **{y: named[y]})
+
+
+def chord_dx(cx: torch.Tensor, tx: torch.Tensor,
+             dpx: torch.Tensor) -> torch.Tensor:
+    """K4, first launch: the step's chord denominators, K2's input, as one
+    (16, M*K/2 + M) batch: element m*K/2 + j is tx[j] - cx[m], element
+    M*K/2 + m is dpx - cx[m] (ecc.chord_dx_plain)."""
+    _check_chords(cx=cx, tx=tx, dpx=dpx)
+    if cx.device.type == "cpu":
+        return ecc.chord_dx_plain(cx, tx, dpx)
+    m_, k2 = cx.shape[1], tx.shape[1]
+    out = torch.empty((NLIMBS, m_ * k2 + m_), dtype=torch.int64,
+                      device=cx.device)
+    if m_ and k2:
+        _launch("ecl_chord_dx", cx.device, cx.data_ptr(), tx.data_ptr(),
+                dpx.data_ptr(), out.data_ptr(), m_, k2)
+        _count("add_chords", 2 * m_ * k2)
+    return out
+
+
+def chord_points(cx, cy, tx, ty, dpx, dpy, inv, need_beta: bool,
+                 need_neg: bool):
+    """K4, second launch: from K2's inverses of `chord_dx`'s batch, the
+    step's M*K points in the flat layout and the advanced centers, as
+    ecc.chord_points_plain returns them: ((x, [beta*x, beta^2*x]),
+    (y, [-y]), ncx, ncy), each (16, M*K) or (16, M)."""
+    _check_chords(cx=cx, cy=cy, tx=tx, ty=ty, dpx=dpx, dpy=dpy)
+    m_, k2 = cx.shape[1], tx.shape[1]
+    _check_rows("inv", inv, 2)
+    if tuple(inv.shape) != (NLIMBS, m_ * k2 + m_) or inv.device != cx.device:
+        raise ValueError(f"inv {tuple(inv.shape)}@{inv.device} must be "
+                         f"{(NLIMBS, m_ * k2 + m_)}@{cx.device}")
+    if cx.device.type == "cpu":
+        return ecc.chord_points_plain(cx, cy, tx, ty, dpx, dpy, inv,
+                                      need_beta, need_neg)
+    rows = 2 + 2 * bool(need_beta) + bool(need_neg)
+    out = torch.empty((rows, NLIMBS, 2 * m_ * k2), dtype=torch.int64,
+                      device=cx.device)
+    nc = torch.empty((2, NLIMBS, m_), dtype=torch.int64, device=cx.device)
+    xs = (out[0],) + ((out[2], out[3]) if need_beta else ())
+    ys = (out[1],) + ((out[-1],) if need_neg else ())
+    if m_ and k2:
+        ptr = [t.data_ptr() for t in xs + ys]
+        bx1, bx2 = ptr[1:3] if need_beta else (None, None)
+        _launch("ecl_chord_points", cx.device, cx.data_ptr(), cy.data_ptr(),
+                tx.data_ptr(), ty.data_ptr(), dpx.data_ptr(), dpy.data_ptr(),
+                inv.data_ptr(), ptr[0], ptr[len(xs)], bx1, bx2,
+                ptr[-1] if need_neg else None, nc[0].data_ptr(),
+                nc[1].data_ptr(), m_, k2)
+        _count("add_chords", 2 * m_ * k2)
+    return xs, ys, nc[0], nc[1]
+
+
+PROBE_MODES = {"compare": 0, "exact": 1, "pow2": 2}
+
+
+def probe_pack(filt: filters.Filter, h: torch.Tensor, bits: torch.Tensor,
+               first_words: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: (5, B) hash words of K1 -> (B/32,) int64 packed hit words,
+    `filt`'s prefilter probe with the mask packing
+    (filters.probe_pack_plain); bits and first_words as for
+    `filt.device_probe`.  B must be a multiple of 32."""
+    if not isinstance(h, torch.Tensor) or h.dtype != torch.int64:
+        raise TypeError("h: expected an int64 tensor of hash words")
+    if h.dim() != 2 or h.shape[0] != 5:
+        raise ValueError(f"h: expected shape (5, B), got {tuple(h.shape)}")
+    if h.shape[1] % 32:
+        raise ValueError(f"h: {h.shape[1]} keys, not a multiple of 32")
+    if not isinstance(bits, torch.Tensor) or bits.dtype != torch.int32 \
+            or bits.dim() != 1:
+        raise TypeError("bits: expected a 1-D int32 tensor")
+    tensors = {"bits": bits}
+    if first_words is not None:
+        if first_words.dtype != torch.int64 or first_words.dim() != 1:
+            raise TypeError("first_words: expected a 1-D int64 tensor")
+        tensors["first_words"] = first_words
+    for name, t in tensors.items():
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    if h.device.type == "cpu":
+        return filters.probe_pack_plain(filt, h, bits, first_words)
+    if filt.mode == "bloom":
+        mode, nbits, nprobes = "exact", filt.blf.nbits, filt.blf_probes
+        if not (64 <= nbits <= 1 << 37 and nbits % 64 == 0):
+            raise ValueError(f"unsupported filter size: {nbits} bits")
+        if not 1 <= nprobes <= 20:
+            raise ValueError(f"probes: {nprobes}, expected 1 to 20")
+    elif first_words is not None:
+        mode, nbits, nprobes = "compare", 0, 0
+    else:
+        mode, nbits, nprobes = "pow2", 1 << filt.pow2_log2, 2
+    if bits.numel() * 32 < nbits:
+        raise ValueError(f"bits: {bits.numel()} words, the {mode} probe "
+                         f"reads {nbits} bits")
+    for name, t in (("h", h), *tensors.items()):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel input must be contiguous")
+    n = h.shape[1]
+    out = torch.empty((n // 32,), dtype=torch.int64, device=h.device)
+    if n:
+        fw = first_words if mode == "compare" else None
+        _launch("ecl_probe_pack", h.device, h.data_ptr(), n,
+                PROBE_MODES[mode], bits.data_ptr(), nbits, nprobes,
+                filt.pow2_log2 or 0, fw.data_ptr() if fw is not None else None,
+                fw.numel() if fw is not None else 0, out.data_ptr())
+        _count("probe_pack", n)
+    return out

@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import bloom, ecc, fel, golden, graphs, kernels
+from .. import bloom, fel, golden, graphs, kernels
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
@@ -42,14 +42,6 @@ def _variants(cfg: SearchConfig) -> list[tuple[int, bool]]:
         if cfg.addr65:
             out.append((e, False))
     return out
-
-
-def pack_mask(bits: torch.Tensor) -> torch.Tensor:
-    """bool bits (flat order kept) -> (B//32,) int64 words < 2^32,
-    little-endian bit order."""
-    b = bits.reshape(-1, 32).to(torch.int64)
-    shifts = torch.arange(32, device=bits.device)
-    return (b << shifts).sum(dim=-1)
 
 
 def unpack_mask(words: np.ndarray) -> np.ndarray:
@@ -130,50 +122,25 @@ def make_step(cfg: SearchConfig, filt: Filter, device):
 
     The table holds only the positive multiples T[j] = (j+1)*s*G; the
     mirror neighbours C - T[j] share T[j].x, so one inverted dx serves the
-    +- pair."""
-    m_, k_ = cfg.centers, cfg.group_k
-    k2 = k_ // 2
-    nh = m_ * k2
+    +- pair.  Five kernels: the chords' denominators (K4, `chord_dx`),
+    their batch inversion (K2), the chords, the center advance and the
+    endo rows (K4, `chord_points`), then per variant hash160 (K1) and the
+    probe with its mask packing (K5)."""
     variants = _variants(cfg)
     need_beta = any(e >= 2 for e, _ in variants)
     need_neg = any(e % 2 for e, _ in variants)
     first_words = filt.first_words(device)
 
     def step(cx, cy, tx, ty, dpx, dpy, bits):
-        cxb, cyb = cx[:, :, None], cy[:, :, None]           # (16, M, 1)
-        txb, tyb = tx[:, None, :], ty[:, None, :]           # (16, 1, K/2)
-        dpxb, dpyb = dpx[:, None], dpy[:, None]             # (16, 1)
-
-        # batch affine chords C[m] +- T[j], plus the center advance
-        dx = fel.sub_mod(txb, cxb)                          # (16, M, K/2)
-        dxc = fel.sub_mod(dpxb, cx)                         # (16, M)
-        inv = kernels.inv_mod_batch(torch.cat([dx.reshape(NLIMBS, nh), dxc],
-                                              dim=1))
-        idx = inv[:, :nh].reshape(NLIMBS, m_, k2)
-        xp, yp = ecc.affine_add_rows(cxb, cyb, txb, tyb, idx)
-        xm, ym = ecc.affine_add_rows(cxb, cyb, txb, fel.neg_mod(tyb), idx)
-        # offsets 0..K-1, center at h = K/2:
-        #   [flip(minus: h-1..0), center, plus[:-1]: h+1..K-1]
-        px = torch.cat([xm.flip(2), cxb, xp[:, :, :k2 - 1]],
-                       dim=2).reshape(NLIMBS, -1)
-        py = torch.cat([ym.flip(2), cyb, yp[:, :, :k2 - 1]],
-                       dim=2).reshape(NLIMBS, -1)
-        ncx, ncy = ecc.affine_add_rows(cx, cy, dpxb, dpyb, inv[:, nh:])
-
-        # endo point synthesis: (x, beta*x, beta^2*x) x (y, -y) as needed
-        xs, ys = {0: px}, {0: py}
-        if need_beta:
-            xs[1] = fel.mul_mod(px, fel.const(golden.BETA1, px))
-            xs[2] = fel.mul_mod(px, fel.const(golden.BETA2, px))
-        if need_neg:
-            ys[1] = fel.neg_mod(py)
-
+        inv = kernels.inv_mod_batch(kernels.chord_dx(cx, tx, dpx))
+        xs, ys, ncx, ncy = kernels.chord_points(cx, cy, tx, ty, dpx, dpy, inv,
+                                                need_beta, need_neg)
         masks = []
         for e, is33 in variants:
             xv, yv = EMAP[e]
             hw = (kernels.addr33_hash_rows if is33
                   else kernels.addr65_hash_rows)(xs[xv], ys[yv])
-            masks.append(pack_mask(filt.device_probe(hw, bits, first_words)))
+            masks.append(kernels.probe_pack(filt, hw, bits, first_words))
         return ncx, ncy, torch.stack(masks)
 
     return step

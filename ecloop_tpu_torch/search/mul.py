@@ -29,7 +29,7 @@ from .. import bloom, ecc, fel, golden, graphs, kernels
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
-from .add import pack_mask, unpack_mask
+from .add import unpack_mask
 from .common import Found, SearchConfig
 
 N = golden.N
@@ -227,7 +227,8 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
     int32 window digits, txy the table, bits the filter's device bits;
     masks is (V, batch/32) int64, one packed hit plane per address form.
     The window scan (`window_scan`) starts at infinity; one K2 call
-    reduces to affine, then K1 hashes and the filter probes."""
+    reduces to affine, then K1 hashes and K5 probes the filter and packs
+    the hits."""
     device = torch.device(device)
     d = n_windows(w)
     labels = _labels(cfg)
@@ -246,7 +247,7 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
         for _, is33 in labels:
             hw = (kernels.addr33_hash_rows if is33
                   else kernels.addr65_hash_rows)(ax, ay)
-            masks.append(pack_mask(filt.device_probe(hw, bits, first_words)))
+            masks.append(kernels.probe_pack(filt, hw, bits, first_words))
         return torch.stack(masks)
 
     return step

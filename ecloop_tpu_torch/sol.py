@@ -20,8 +20,11 @@ each call is priced at its 32-bit cost read off `csrc/field.cuh`
 (`FIELD_PRICE`); the plain form's own torch ops, which emulate 32-bit
 words with 16-bit limbs in int64, are not priced.  K1 is counted by
 running its function on one key (`HashOpCount`), K2 and K3 by their own
-accounts (`inv_account`, `mixed_add_account`), which `chip_smoke.py`
-holds their device times against.
+accounts (`inv_account`, `mixed_add_account`), K4 by running its plain
+forms on data-free tensors of the step's shapes (`chord_account`), K5
+from the probe terms below and the probes its data reads
+(`probe_pack_account`, `probe_reads`); `chip_smoke.py` holds their
+device times against these.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import subprocess
 import numpy as np
 import torch
 
-from . import ecc, fel, hash160
+from . import bloom, ecc, fel, hash160
 
 MEM_BPS = 3.35e12                 # H100 SXM HBM3, bytes/s
 INT_LANE_OPS_PER_CLK = 64         # 32-bit integer results per clock per SM
@@ -67,6 +70,11 @@ HASH_LIMBS = {True: 16 + 1 + 5, False: 32 + 5}   # read (x, y's parity) + writte
 # first hash word with each target's (one op per target).
 PROBE_POW2_OPS = 11
 PROBE_EXACT_OPS = 11 + 2 + 4 * 16
+# K5 (csrc/probe_pack.cu) searches the sorted first words instead: per
+# level an add, a compare and a select, then one compare; each key's bit
+# is packed by one warp vote
+PROBE_SEARCH_OPS = 3
+PACK_OPS = 1
 M32 = 0xFFFFFFFF
 
 
@@ -179,6 +187,81 @@ def mixed_add_account(n: int, active: int) -> tuple[float, float]:
     small multiply per active lane (the incomplete form's work; the
     doubling runs only where q == g)."""
     return n * (128 * LIMB_BYTES + 1), active * (12 * FE_MUL_OPS + FE_SMALL_OPS)
+
+
+def chord_account(m: int, k: int, need_beta: bool,
+                  need_neg: bool) -> dict[str, tuple[float, float]]:
+    """K4 for one `add` step of m centers x k keys: (bytes, operations)
+    of each launch, {"chord_dx": ..., "chord_points": ...}.  Bytes: 16
+    limbs per element read or written once; chord_dx reads the centers'
+    x, the table's x and D.x and writes m*k/2 + m differences;
+    chord_points reads both coordinates of those three and the inverses,
+    and writes the m*k points' rows (x, y, beta*x and beta^2*x with
+    need_beta, -y with need_neg) and the m advanced centers.  Operations:
+    the plain forms (ecc.chord_dx_plain, chord_points_plain) run once on
+    tensors of these shapes on the meta device, which holds no data,
+    with fel's functions counted and priced."""
+    k2 = k // 2
+    elem = fel.NLIMBS * LIMB_BYTES
+    inv_n = m * k2 + m
+    rows = 2 + 2 * need_beta + need_neg
+
+    def meta(*shape):
+        return torch.empty((fel.NLIMBS,) + shape, dtype=torch.int64,
+                           device="meta")
+    cx, cy, tx, ty, dp, inv = (meta(m), meta(m), meta(k2), meta(k2), meta(),
+                               meta(inv_n))
+    with count_field_ops() as dx_calls:
+        ecc.chord_dx_plain(cx, tx, dp)
+    with count_field_ops() as pt_calls:
+        ecc.chord_points_plain(cx, cy, tx, ty, dp, dp, inv, need_beta,
+                               need_neg)
+    return {"chord_dx": ((m + k2 + 1 + inv_n) * elem, price(dx_calls)),
+            "chord_points": ((2 * (m + k2 + 1) + inv_n + rows * m * k
+                              + 2 * m) * elem, price(pt_calls))}
+
+
+def probe_reads(filt, h: torch.Tensor, bits: torch.Tensor,
+                first_words: torch.Tensor | None = None) -> int:
+    """Bit words that K5's probes read for the (5, B) hash words h, with
+    the arguments of `filt.device_probe`: each key's probes in order up
+    to its first clear bit (all of them when it passes); 0 in compare
+    mode.  Counted with the plain probes."""
+    if filt.mode == "bloom":
+        count = filt.blf_probes
+
+        def upto(p):
+            return bloom.probe_exact(h, bits, filt.blf.nbits, p)
+    elif first_words is not None:
+        return 0
+    else:
+        count = 2
+
+        def upto(p):
+            return bloom.probe_pow2(h, bits, filt.pow2_log2, p)
+    reads = h.shape[1]
+    for p in range(1, count):
+        reads += int(upto(p).sum())
+    return reads
+
+
+def probe_pack_account(n: int, mode: str, reads: int = 0, n_first: int = 0,
+                       bits_words: int = 0) -> tuple[float, float]:
+    """K5 over n keys (csrc/probe_pack.cu): (bytes, operations).  Mode
+    "compare": the first hash word per key and the n_first sorted first
+    words once; a search of ceil(log2 n_first) levels and a compare per
+    key.  Modes "exact" and "pow2": the five hash words per key and the
+    `reads` probed bit words (`probe_reads`), 4 bytes each but at most
+    the filter's bits_words once; PROBE_EXACT_OPS or PROBE_POW2_OPS per
+    read.  Both: one 8-byte word out per 32 keys, a vote per key."""
+    out = n // 32 * 8
+    if mode == "compare":
+        levels = max(n_first - 1, 0).bit_length()
+        ops = n * (levels * PROBE_SEARCH_OPS + int(n_first > 0))
+        return n * 8 + n_first * 8 + out, ops + n * PACK_OPS
+    per = PROBE_EXACT_OPS if mode == "exact" else PROBE_POW2_OPS
+    return (n * 5 * 8 + 4 * min(reads, bits_words) + out,
+            reads * per + n * PACK_OPS)
 
 
 def scan_account(n: int, d: int, active: int) -> tuple[float, float]:

@@ -101,7 +101,7 @@ def test_cached_table_matches_jax():
 def test_pack_unpack_mask_roundtrip():
     rng = np.random.default_rng(2)
     bits = rng.random(3 * 256) < 0.1
-    packed = add.pack_mask(torch.from_numpy(bits))
+    packed = filters.pack_mask(torch.from_numpy(bits))
     assert packed.shape == (24,) and int(packed.max()) < 1 << 32
     np.testing.assert_array_equal(add.unpack_mask(packed.numpy()),
                                   bits.astype(np.uint8))

@@ -6,6 +6,7 @@ against the JAX package's where a term is the same.  Budgets are tiny
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -173,6 +174,61 @@ def test_leaf_budgets_and_accounts_are_pinned():
     assert sol.ops_per_element(lambda x: fel.inv_mod(x), a, elems=2) == 270 * 74
     assert sol.ops_per_element(lambda x: fel.inv_mod_batch(x), a,
                                elems=2) == (6 + 270) * 74 / 2
+
+
+def test_chord_and_probe_accounts_by_hand():
+    """K4 and K5 at one width against counts made by hand: 4 centers x
+    64 keys (32 pairs each, 132 inverses), 128 bytes per element."""
+    acc = sol.chord_account(4, 64, need_beta=True, need_neg=True)
+    # chord_dx: cx (4), tx (32), D.x (1) in, 132 differences out; a sub each
+    assert acc["chord_dx"] == ((4 + 32 + 1 + 132) * 128, 132 * 16)
+    # chord_points: both coordinates of those and the 132 inverses in;
+    # x, y, beta x, beta^2 x, -y of 256 keys and 2 x 4 centers out.  Per
+    # chord 2 mul + 1 sqr + 5 sub = 302: 2 x 128 pairs and 4 advances;
+    # -T.y once per table entry (32), 2 mul and 1 neg per key
+    assert acc["chord_points"] == (
+        (2 * 37 + 132 + 5 * 256 + 8) * 128,
+        32 * 16 + (256 + 4) * 302 + 256 * (2 * 74 + 16))
+    plain = sol.chord_account(4, 64, need_beta=False, need_neg=False)
+    assert plain["chord_points"] == ((2 * 37 + 132 + 2 * 256 + 8) * 128,
+                                     32 * 16 + 260 * 302)
+    # K5: the search of 160 first words has 8 levels of 3 ops, then a
+    # compare and a vote per key; 8 bytes of hash per key, the list once
+    # and a word per 32 keys
+    assert sol.probe_pack_account(4096, "compare", n_first=160) == (
+        4096 * 8 + 160 * 8 + 128 * 8, 4096 * (8 * 3 + 1 + 1))
+    assert sol.probe_pack_account(4096, "compare", n_first=0) == (
+        4096 * 8 + 128 * 8, 4096)
+    # exact: 40 bytes of hash per key, 4 per bit word read (at most the
+    # filter once), 77 ops per probe read
+    assert sol.probe_pack_account(4096, "exact", reads=5000,
+                                  bits_words=1000) == (
+        4096 * 40 + 4 * 1000 + 128 * 8, 5000 * 77 + 4096)
+    assert sol.probe_pack_account(64, "pow2", reads=100,
+                                  bits_words=1 << 20) == (
+        64 * 40 + 400 + 16, 100 * 11 + 64)
+
+
+def test_probe_reads_stop_at_the_first_clear_bit():
+    from ecloop_tpu_torch import bloom, filters
+
+    h = torch.randint(0, 1 << 32, (5, 64), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(1))
+    ones = torch.full((1 << 11,), -1, dtype=torch.int32)
+    pow2 = filters.Filter(mode="list", targets=np.zeros((1, 5), np.uint32),
+                          blf=None, device_bits=None, pow2_log2=16)
+    assert sol.probe_reads(pow2, h, ones, torch.zeros(1, dtype=torch.int64)) == 0
+    assert sol.probe_reads(pow2, h, ones) == 2 * 64
+    assert sol.probe_reads(pow2, h, torch.zeros_like(ones)) == 64
+    blf = filters.Filter(mode="bloom", targets=None,
+                         blf=bloom.BloomFilter(1 << 10), device_bits=None,
+                         pow2_log2=None, blf_probes=3)
+    assert sol.probe_reads(blf, h, ones) == 3 * 64
+    half = ones.clone()
+    half[::2] = 0                        # every other bit word clear
+    want = 64 + sum(int(bloom.probe_exact(h, half, 1 << 16, p).sum())
+                    for p in (1, 2))
+    assert sol.probe_reads(blf, h, half) == want
 
 
 @pytest.mark.parametrize("endo,addr65", [(False, False), (True, False),

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from ecloop_tpu_torch import benchlib, ecc, fel, filters, golden, graphs, hash160
+from ecloop_tpu_torch import benchlib, bloom, ecc, fel, filters, golden, graphs, hash160
 from ecloop_tpu_torch import kernels
 from ecloop_tpu_torch.search import add, mul
 from ecloop_tpu_torch.search.common import SearchConfig
@@ -198,7 +198,7 @@ def test_window_scan_gives_the_mul_steps_masks(dev):
     qx, qy, qz = mul.window_scan(table, idx, skip, (zero, one, zero))
     ax, ay = ecc.proj_to_affine_rows(qx, qy, qz, inv=kernels.inv_mod_batch)
     fw = filt.first_words(dev)
-    want = torch.stack([add.pack_mask(filt.device_probe(k(ax, ay), bits, fw))
+    want = torch.stack([filters.pack_mask(filt.device_probe(k(ax, ay), bits, fw))
                         for k in (kernels.addr33_hash_rows,
                                   kernels.addr65_hash_rows)])
     assert torch.equal(masks, want)
@@ -233,7 +233,9 @@ def test_graph_call_equals_eager_steps(dev):
         assert torch.equal(call.cx, cx) and torch.equal(call.cy, cy)
     n = 2 + 2          # two replays, then the eager steps' own launches
     assert kernels.LAUNCHES["hash160"] == n * cfg.steps_per_call * v
+    assert kernels.LAUNCHES["probe_pack"] == n * cfg.steps_per_call * v
     assert kernels.LAUNCHES["inv_mod_batch"] == n * cfg.steps_per_call
+    assert kernels.LAUNCHES["add_chords"] == 2 * n * cfg.steps_per_call
 
 
 def test_mul_graph_job_equals_eager(dev):
@@ -278,11 +280,13 @@ def test_engines_launch_only_through_graph_replays(dev, monkeypatch):
     assert {f.priv for f in eng.run_range()} == set(targets)
     # 0x800 keys at 8 x 256 per step: one step, so one call per shard
     assert kernels.LAUNCHES == {"hash160": 2 * 2, "inv_mod_batch": 2 * 2,
-                                "mixed_add": 0}
+                                "mixed_add": 0, "add_chords": 2 * 2 * 2,
+                                "probe_pack": 2 * 2}
     kernels.reset_launches()
     assert {f.priv for f in meng.run_keys(targets + [5, 6])} == set(targets)
     assert kernels.LAUNCHES == {"hash160": 2, "inv_mod_batch": 2,
-                                "mixed_add": 2 * mul.n_windows(8)}
+                                "mixed_add": 2 * mul.n_windows(8),
+                                "add_chords": 0, "probe_pack": 2}
 
 
 def _sharded_add_parity(devices):
@@ -336,6 +340,89 @@ def test_sharded_add_over_two_cards():
     assert done.device == d1
     assert np.array_equal(common.fetched((host, done)), x.cpu().numpy())
     _sharded_add_parity([d0, d1])
+
+
+def _step_inputs(m, k, dev, base=0x8000):
+    cfg = SearchConfig(range_s=base, range_e=base + m * k, centers=m,
+                       group_k=k)
+    cx, cy = add.center_points(cfg, base)
+    table = add._cached_table(cfg.stride, k, cfg.keys_per_step)
+    return [fel.from_last(a, dev) for a in (cx, cy, *table)]
+
+
+@pytest.mark.parametrize("m,k", [(32, 4096), (512, 4096), (4, 64)])
+@pytest.mark.parametrize("endo", [False, True])
+def test_chord_kernels_match_plain(dev, m, k, endo):
+    """K4 at the searches' widths (every shard of the searches runs 32 x
+    4096, the wide call 512 x 4096), with a center stored as (0, 0) and
+    zero inverses among real ones; endo writes beta x, beta^2 x and -y."""
+    cx, cy, tx, ty, dpx, dpy = _step_inputs(m, k, dev)
+    cx[:, 1], cy[:, 1] = 0, 0
+    before = kernels.LAUNCHES["add_chords"]
+    dx = kernels.chord_dx(cx, tx, dpx)
+    assert torch.equal(dx, ecc.chord_dx_plain(cx, tx, dpx))
+    inv = kernels.inv_mod_batch(dx)
+    inv[:, [0, 7, m * k // 2 - 1, m * k // 2 + 2]] = 0
+    got = kernels.chord_points(cx, cy, tx, ty, dpx, dpy, inv, endo, endo)
+    want = ecc.chord_points_plain(cx, cy, tx, ty, dpx, dpy, inv, endo, endo)
+    assert kernels.LAUNCHES["add_chords"] == before + 2
+    assert len(got[0]) == len(want[0]) and len(got[1]) == len(want[1])
+    for a, b in zip(got[0] + got[1] + got[2:], want[0] + want[1] + want[2:]):
+        assert torch.equal(a, b)
+    assert got[2].data_ptr() != cx.data_ptr()
+
+
+def _probe_case(mode, arg, dev):
+    """(filter, bits, first words) of a K5 case; dense random bits for
+    the bloom and pow2 modes, so that both outcomes occur."""
+    g = torch.Generator(device=dev).manual_seed(arg)
+    if mode == "compare":
+        targets = np.random.default_rng(arg).integers(
+            0, 1 << 32, size=(arg, 5), dtype=np.uint64).astype(np.uint32)
+        filt = filters.filter_from_hashes(targets)
+        return filt, torch.zeros(1, dtype=torch.int32, device=dev), \
+            filt.first_words(dev)
+    if mode == "pow2":
+        filt = filters.Filter(mode="list", targets=None, blf=None,
+                              device_bits=None, pow2_log2=arg)
+        words = 1 << (arg - 5)
+    else:
+        nbits = 64 * 1000 if arg <= 20 else 3 * (1 << 32) + 64
+        filt = filters.Filter(mode="bloom", targets=None,
+                              blf=bloom.BloomFilter(nbits // 64),
+                              device_bits=None, pow2_log2=None,
+                              blf_probes=min(arg, 20))
+        words = nbits // 32
+    bits = torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
+                         device=dev, generator=g)
+    bits |= torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
+                          device=dev, generator=g)
+    return filt, bits, None
+
+
+@pytest.mark.parametrize("n", [131072, 2097152, 32768])
+@pytest.mark.parametrize("mode,arg", [
+    ("compare", 0), ("compare", 1), ("compare", 160), ("compare", 2048),
+    ("exact", 1), ("exact", 3), ("exact", 20), ("exact", 21),
+    ("pow2", 32), ("pow2", 33)])
+def test_probe_pack_kernel_matches_plain(dev, mode, arg, n):
+    """K5 at the searches' key counts (an `add` step, the wide call, a
+    `mul` job) in every mode: compare lists of 0-2,048 first words (hits
+    planted), bloom at 1, 3 and 20 probes and at 20 over a 3 x 2^32 + 64
+    bit filter ("exact", 21), pow2 on each side of log2_bits 32."""
+    filt, bits, fw = _probe_case(mode, arg, dev)
+    h = torch.randint(0, 1 << 32, (5, n), dtype=torch.int64, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(n))
+    if fw is not None and fw.numel():
+        h[0, :n // 4] = fw[torch.arange(n // 4, device=dev) % fw.numel()]
+    before = kernels.LAUNCHES["probe_pack"]
+    got = kernels.probe_pack(filt, h, bits, fw)
+    want = filters.probe_pack_plain(filt, h, bits, fw)
+    assert kernels.LAUNCHES["probe_pack"] == before + 1
+    assert torch.equal(got, want)
+    hits = int(np.unpackbits(got.cpu().numpy().astype("<u4").view(
+        np.uint8)).sum())
+    assert (hits == 0) == (mode == "compare" and arg == 0)
 
 
 def test_failed_capture_raises(dev):

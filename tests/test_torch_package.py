@@ -140,7 +140,8 @@ def test_cpu_calls_do_not_count_as_launches():
     kernels.proj_add_affine(*[_limbs(4)] * 5, torch.ones(4, dtype=torch.bool),
                             True)
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 0,
-                                "mixed_add": 0}
+                                "mixed_add": 0, "add_chords": 0,
+                                "probe_pack": 0}
 
 
 def test_golden_copy_matches_the_jax_package():

@@ -16,7 +16,7 @@ import torch
 from ecloop_tpu import filters as jfilters
 from ecloop_tpu_torch import _build, bloom, cli, filters, golden, native
 from ecloop_tpu_torch.search import common, mul
-from ecloop_tpu_torch.search.add import pack_mask
+from ecloop_tpu_torch.filters import pack_mask
 from ecloop_tpu_torch.search.common import SearchConfig
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
