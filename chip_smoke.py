@@ -30,20 +30,26 @@ steps at 32 x 4096 in list, pow2, bloom and -endo modes, and at
 512 x 4096) and one 32,768-key `mul` job against the eager steps bit
 for bit and times both (capture, replay wall, device time, busy share,
 keys/s, and the step's share of sol.step_budget); phases n and k fail
-if a kernel launches outside a replay.  Phase 7 holds K4 (the `add`
-step's chords, csrc/add_chords.cu) and K5 (the prefilter probe with its
-mask packing, csrc/probe_pack.cu) bit for bit against their plain forms
-at every step geometry and key count the searches run, -endo and plain,
-in the three probe modes (compare lists of 0-2,048 first words, bloom
-at 1, 3 and 20 probes and over 3 x 2^32 + 64 bits, pow2 on each side of
-log2_bits 32), with a (0, 0) center and zero inverses, and times each
-against its plain form and its bound.
+if a kernel launches outside a replay, and the searches must run K1 and
+K5 only fused (csrc/hash160_probe.cu, one launch per address form over
+a step's planes), never alone.  Phase 7 holds K4 (the `add` step's
+chords, csrc/add_chords.cu), K5 (the prefilter probe with its mask
+packing, csrc/probe_pack.cu) and the fused hash and probe bit for bit
+against their plain forms at every step geometry and key count the
+searches run, -endo and plain, in the three probe modes (compare lists
+of 0-4,096 first words, past the kernels' shared-memory cap; bloom at
+1, 3 and 20 probes, over 3 x 2^32 + 64 bits, and a 2^31-bit filter
+filled as blf-gen fills it at its adaptive probe count; pow2 on each
+side of log2_bits 32), the fused entry at 1, 2, 6 and 12 planes, with a
+(0, 0) center and zero inverses, and times each against its plain form
+and its bound, and the fused entry against K1 + K5 + the stack of the
+planes that it replaces.
 Phase p runs `add -r 8000:fffff` and `mul` on the 1080-key vector
 through the CLI in processes of their own, untraced and with
 ECLOOP_PROFILE (a torch.profiler trace of the whole command): stdout,
-k_checked, launches and graphs must agree, and the trace must hold
-K1-K3 inside graph replays; a traced `blf-check` must leave the card
-alone.  Phase o, last, fails unless a body the card cannot capture (a
+k_checked, launches and graphs must agree, and the trace must hold the
+path's kernels inside graph replays and no K1 or K5 alone; a traced
+`blf-check` must leave the card alone.  Phase o, last, fails unless a body the card cannot capture (a
 host sync) raises.
 Each phase prints one line or more; any failure raises.
 Before the last line it prints one JSON object describing the kernels,
@@ -100,19 +106,37 @@ CLI_TIMEOUT_S = 600      # phase p: each traced or untraced CLI process's limit
 # phase p: the kernels' names in a trace (the __global__ functions)
 KERNEL_SYMBOLS = {"hash160": "hash160_kernel", "inv_mod_batch": "inv_batch_kernel",
                   "mixed_add": "mixed_add_kernel", "add_chords": "chord_",
-                  "probe_pack": "probe_pack_kernel"}
-# the kernels each search path launches (the bench and its family launch
-# K1-K3 only)
-ADD_KERNELS = ("hash160", "inv_mod_batch", "add_chords", "probe_pack")
-MUL_KERNELS = ("hash160", "inv_mod_batch", "mixed_add", "probe_pack")
-BENCH_KERNELS = ("hash160", "inv_mod_batch", "mixed_add")
+                  "probe_pack": "probe_pack_kernel",
+                  "hash160_probe": "hash160_probe_kernel"}
+# the kernels each search path launches, and the two that the searches
+# run fused (hash160_probe) and never alone; the bench and its family
+# launch K1-K5 alone
+ADD_KERNELS = ("inv_mod_batch", "add_chords", "hash160_probe")
+MUL_KERNELS = ("inv_mod_batch", "mixed_add", "hash160_probe")
+UNFUSED = ("hash160", "probe_pack")
+BENCH_KERNELS = ("hash160", "inv_mod_batch", "mixed_add", "add_chords",
+                 "probe_pack")
 # phase 7: K5's cases, (mode, argument): compare lists of that many first
-# words, the exact bloom probe at that many probes over 64,000 bits (21:
-# 20 probes over 3 x 2^32 + 64 bits, past 32-bit indices), pow2 at that
-# log2_bits
+# words (4,096: above the kernels' shared-memory cap of 2,048), the exact
+# bloom probe at that many probes over 64,000 bits (21: 20 probes over
+# 3 x 2^32 + 64 bits, past 32-bit indices), a .blf as blf-gen sizes it
+# (2^31 bits, past the L2, filled to BLF_FILL, its adaptive probe count),
+# pow2 at that log2_bits
 PROBE_CASES = (("compare", 0), ("compare", 1), ("compare", 160),
-               ("compare", 2048), ("exact", 1), ("exact", 3), ("exact", 20),
-               ("exact", 21), ("pow2", 32), ("pow2", 33))
+               ("compare", 2048), ("compare", 4096), ("exact", 1),
+               ("exact", 3), ("exact", 20), ("exact", 21), ("blf", 31),
+               ("pow2", 32), ("pow2", 33))
+# blf-gen's fill: 43.1 bits per entry (bloom.BloomFilter.for_count) and 20
+# probes leave 1 - exp(-20 / 43.1) of the bits set
+BLF_FILL = 0.371
+# phase 7: the fused hash and probe's plane sets (x row, y row, is33) in
+# search/add._variants's order: addr33, -a cu, -endo, -endo -a cu
+EMAP = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1))
+PLANE_SETS = {1: [(0, 0, True)], 2: [(0, 0, True), (0, 0, False)],
+              6: [(*EMAP[e], True) for e in range(6)],
+              12: [(*EMAP[e], f) for e in range(6) for f in (True, False)]}
+FUSED_TIMED_NS = (131072, 2097152)   # phase 7 times the fused entry there
+PROBE_MODE_NAMES = ("compare", "exact", "pow2", "compare_global")
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 CUDA_CATS = DEVICE_CATS | {"cuda_runtime", "cuda_driver", "gpu_user_annotation"}
 TRACE_LINE = re.compile(r"^profile: (.+), ([\d,]+) bytes, written in ([\d.]+) s$",
@@ -220,6 +244,48 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float:
     raise AssertionError(msg)
 
 
+def device_total_ms(fn, ops_per_call: int, calls: int = 20):
+    """(device ms, device ops) per call of fn, all its device ops summed
+    (kernel_time over `calls` calls); a window that saw fewer than
+    ops_per_call ops per call is taken again, PROFILE_TRIES windows in
+    all (device_ms's reason)."""
+    for _ in range(PROFILE_TRIES):
+        ms, ops, _top = kernel_time(lambda: [fn() for _ in range(calls)])
+        if ms is not None and ops >= ops_per_call * calls:
+            return ms / calls, ops / calls
+        msg = f"profiler saw {ops} device ops of {ops_per_call} x {calls}"
+        phase("profiler", msg)
+        SHORT_WINDOWS.append(msg)
+        time.sleep(PROFILE_PAUSE_S)
+    raise AssertionError(msg)
+
+
+def plant_members(filt, bits, h) -> None:
+    """Add the keys whose (5, k) hash words are h to a bloom filter's
+    device bits, as blf-gen adds an entry: their 20 probe bits set."""
+    import numpy as np
+    import torch
+    from ecloop_tpu_torch import bloom
+
+    idx = bloom.probe_indices_host(h.T.cpu().numpy().astype(np.uint32)).reshape(
+        -1) % np.uint64(filt.blf.nbits)
+    words, at = np.unique((idx >> np.uint64(5)).astype(np.int64),
+                          return_inverse=True)
+    add = np.zeros(len(words), dtype=np.uint32)
+    np.bitwise_or.at(add, at, np.uint32(1) << (idx & np.uint64(31)).astype(
+        np.uint32))
+    w = torch.from_numpy(words).to(bits.device)
+    bits[w] |= torch.from_numpy(add.view(np.int32)).to(bits.device)
+
+
+def fused_only(launches: dict, what: str) -> None:
+    """Fail if a search launched K1 or K5 alone: they run fused
+    (hash160_probe)."""
+    alone = {k: launches[k] for k in UNFUSED if launches[k]}
+    if alone:
+        raise AssertionError(f"{what}: K1 or K5 launched alone {alone}")
+
+
 def split_config(n: int, range_e: int, endo: bool):
     """`add` from 0x8000 over n devices with the CLI's geometry: n times
     the one-device centers (cli.search_config)."""
@@ -286,7 +352,8 @@ def sass_mix(lib_path: str) -> dict | None:
 def ptxas_report(path: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
     from the nvcc -Xptxas -v log of the build."""
-    forms = {"hash160": ("_addr65", "_addr33"),
+    forms = {"hash160_probe": ("_addr65", "_addr33"),
+             "hash160": ("_addr65", "_addr33"),
              "mixed_add": ("_incomplete", "_complete"),
              "inv_batch": ("", ""), "chord_dx": ("", ""),
              "chord_points": ("", ""), "probe_pack": ("", "")}
@@ -298,6 +365,9 @@ def ptxas_report(path: str) -> dict:
                 name = next((k for k in forms if k in mangled), None)
                 if name:
                     name += forms[name]["ILb1E" in mangled]
+                    mode = re.search(r"Li(\d)E", mangled)
+                    if mode and "probe" in name:     # the probe mode
+                        name += "_" + PROBE_MODE_NAMES[int(mode.group(1))]
             elif name and "spill stores" in line:
                 out[name] = line.strip()
             elif name and "Used" in line and "registers" in line:
@@ -364,6 +434,7 @@ def mul_run(cli, kernels, lines):
         raise AssertionError(f"mul ran on {run.device}")
     if min(launches[k] for k in MUL_KERNELS) < 1:
         raise AssertionError(f"a kernel of the mul path never ran: {launches}")
+    fused_only(launches, "mul")
     return run, launches
 
 
@@ -702,8 +773,11 @@ def chord_inputs(m: int, k: int, dev):
 
 def probe_case(mode: str, arg: int, dev, seed: int):
     """K5's filter, bits and first words for a case of PROBE_CASES: random
-    targets for compare mode; dense random bits (3/4 set, so that keys
-    pass every count of probes) for the exact and pow2 modes."""
+    targets for compare mode (their unique first words, however many);
+    dense random bits (3/4 set, so that keys pass every count of probes)
+    for the exact and pow2 modes; for "blf" 2^arg bits, each set with
+    probability BLF_FILL (a filter as blf-gen fills it), probed with
+    `bloom.adaptive_probe_count` of them."""
     import numpy as np
     import torch
     from ecloop_tpu_torch import bloom, filters
@@ -712,8 +786,21 @@ def probe_case(mode: str, arg: int, dev, seed: int):
         targets = np.random.default_rng(seed + arg).integers(
             0, 1 << 32, size=(arg, 5), dtype=np.uint64).astype(np.uint32)
         filt = filters.filter_from_hashes(targets)
-        return filt, torch.zeros(1, dtype=torch.int32, device=dev), \
-            filt.first_words(dev)
+        fw = torch.from_numpy(np.unique(filt.targets[:, 0]).astype(
+            np.int64)).to(dev)
+        return filt, torch.zeros(1, dtype=torch.int32, device=dev), fw
+    if mode == "blf":
+        words = 1 << (arg - 5)
+        g = torch.Generator(device=dev).manual_seed(seed + arg)
+        bits = torch.zeros(words, dtype=torch.int32, device=dev)
+        for b in range(32):
+            bits |= (torch.rand(words, device=dev, generator=g)
+                     < BLF_FILL).to(torch.int32) << b
+        blf = bloom.BloomFilter(words // 2, bits.cpu().numpy().view(np.uint64))
+        return filters.Filter(mode="bloom", targets=None, blf=blf,
+                              device_bits=None, pow2_log2=None,
+                              blf_probes=bloom.adaptive_probe_count(blf.bits)
+                              ), bits, None
     if mode == "pow2":
         filt = filters.Filter(mode="list", targets=None, blf=None,
                               device_bits=None, pow2_log2=arg)
@@ -731,6 +818,18 @@ def probe_case(mode: str, arg: int, dev, seed: int):
     bits |= torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
                           device=dev, generator=g)
     return filt, bits, None
+
+
+def planted(fw, words):
+    """A compare case's first words with a quarter of them (at least one)
+    replaced by `words` (hash words of keys the check probes), so that
+    the list keeps its length and the keys hit."""
+    import torch
+
+    if fw is None or not fw.numel():
+        return fw
+    k = max(1, fw.numel() // 4)
+    return torch.unique(torch.cat([fw[k:], words[:k]]))
 
 
 def main() -> int:
@@ -917,6 +1016,7 @@ def main() -> int:
         raise AssertionError(f"k_checked {run.k_checked}")
     if min(launches_add[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches_add}")
+    fused_only(launches_add, "add")
     rate = run.k_checked / run.seconds
     add_s = run.seconds
     phase("3", f"add -r 8000:ffffff: 9/9 keys, k_checked {run.k_checked:,} "
@@ -1005,6 +1105,7 @@ def main() -> int:
         raise AssertionError(f"rnd k_checked {run.k_checked}")
     if min(launches_rnd[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches_rnd}")
+    fused_only(launches_rnd, "rnd")
     phase("e", f"rnd -r 8000:ffffff (24-bit window, one pass): 9/9 keys, "
                f"k_checked {run.k_checked:,} in {run.seconds:.3f} s = "
                f"{run.k_checked / run.seconds:,.0f} keys/s; launches "
@@ -1098,6 +1199,7 @@ def main() -> int:
     if min(launches_resume[k] for k in ADD_KERNELS) < 1:
         raise AssertionError(f"a kernel of the path never ran: "
                              f"{launches_resume}")
+    fused_only(launches_resume, "add -c")
     phase("g", f"add -r 8000:ffffff -c from key {RESUME_KEY:#x}: "
                f"'{resume_line}', found {sorted(map(hex, want))}, k_checked "
                f"{run.k_checked:,}, saved cursor {saved['cursor']:,}, in "
@@ -1192,10 +1294,16 @@ def main() -> int:
         if not hits:
             raise AssertionError(f"add call ({name}): no hit in the first "
                                  f"{cfg.steps_per_call} steps")
+        replay = collections.Counter(k for k, _ in call.graph.launches)
+        fused_only(replay, f"add call ({name})")
+        if replay["hash160_probe"] != cfg.addr33 + cfg.addr65:
+            raise AssertionError(f"add call ({name}): {dict(replay)} per "
+                                 f"replay, one hash160_probe per form expected")
         step_calls[name] = {
             "centers": cfg.centers, "steps": cfg.steps_per_call,
             "capture_s": call.graph.capture_s, "peak_mib": peak,
             "kernel_launches_per_replay": len(call.graph.launches),
+            "replay_launches": dict(replay),
             "replays_per_call": cfg.steps_per_call, "hit_words": hits}
         phase("n", f"add {name} ({cfg.centers} x {cfg.group_k}, T = "
                    f"{cfg.steps_per_call}): graph call == {cfg.steps_per_call}"
@@ -1280,6 +1388,8 @@ def main() -> int:
     if not torch.equal(mcall.masks, want):
         raise AssertionError("mul call: the graph's masks differ from the "
                              "eager job's")
+    mreplay = collections.Counter(k for k, _ in mcall.graph.launches)
+    fused_only(mreplay, "mul call")
     mhits = int(np.unpackbits(want.cpu().numpy().astype("<u4").view(
         np.uint8)).sum())
     if mhits < 1080:
@@ -1288,7 +1398,7 @@ def main() -> int:
     step_calls["mul"] = {
         "batch": MUL_N, "capture_s": mcall.graph.capture_s, "peak_mib": mpeak,
         "kernel_launches_per_replay": len(mcall.graph.launches),
-        "hit_bits": mhits,
+        "replay_launches": dict(mreplay), "hit_bits": mhits,
         "graph": call_figures(mcall, 1, MUL_N, 50),
         "eager": call_figures(lambda: mcall.step(mdig_t, mcall.txy,
                                                  mcall.bits), 1, MUL_N, 20)}
@@ -1442,15 +1552,37 @@ def main() -> int:
             if b_ms > k_ms:
                 raise AssertionError(f"add_chords runs in {k_ms:.4f} ms, under "
                                      f"its least time {b_ms:.4f} ms")
-    for name in ("chord_dx", "chord_points", "probe_pack"):
-        phase("7", f"ptxas {name}: {ptxas.get(name)}")
+    for name, info in sorted(ptxas.items()):
+        if "chord" in name or "probe" in name:
+            phase("7", f"ptxas {name}: {info}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # per key count: K5's random hash words, and the fused entry's three x
+    # and two y rows of random limbs with every plane's plain hash rows
+    # (K1's plain form), made once for all the cases
+    k5_in, fused_in = {}, {}
     for n in hash_ns:
-        h0 = torch.randint(0, 1 << 32, (5, n), dtype=torch.int64, device=dev,
-                           generator=gen)
-        for mode, arg in PROBE_CASES:
-            filt, bits, fw = probe_case(mode, arg, dev, SEED)
-            h = h0.clone()
+        k5_in[n] = torch.randint(0, 1 << 32, (5, n), dtype=torch.int64,
+                                 device=dev, generator=gen)
+        xs = [torch.from_numpy(fel.random_limbs(rng, n)).to(dev)
+              for _ in range(3)]
+        ys = [torch.from_numpy(fel.random_limbs(rng, n)).to(dev)
+              for _ in range(2)]
+        fused_in[n] = (xs, ys, {p: (hash160.addr33_hash_rows if p[2] else
+                                    hash160.addr65_hash_rows)(xs[p[0]], ys[p[1]])
+                                for p in PLANE_SETS[12]})
+    counts = {True: hops["addr33"], False: hops["addr65"]}
+    k5_cases, fused_cases, errs["probe_pack"], errs["hash160_probe"] = {}, {}, 0, 0
+    for mode, arg in PROBE_CASES:
+        filt, bits, fw0 = probe_case(mode, arg, dev, SEED)
+        kmode = "exact" if mode == "blf" else mode
+        what = f"{mode} {arg}" + (f" ({filt.blf_probes} probes)"
+                                  if mode == "blf" else "")
+        if mode == "blf":       # members: the first keys of each check
+            for n in hash_ns:
+                plant_members(filt, bits, k5_in[n][:, :32])
+                plant_members(filt, bits, fused_in[n][2][(0, 0, True)][:, :32])
+        for n in hash_ns:
+            h, fw = k5_in[n].clone(), fw0
             if fw is not None and fw.numel():         # plant hits
                 h[0, :n // 4] = fw[torch.arange(n // 4, device=dev) % fw.numel()]
             got = kernels.probe_pack(filt, h, bits, fw)
@@ -1459,23 +1591,24 @@ def main() -> int:
             e = int((got - want).abs().max())
             if not torch.equal(got, want):
                 raise AssertionError(f"K5 differs from its plain form at {n} "
-                                     f"keys, {mode} {arg} (max abs err {e})")
+                                     f"keys, {what} (max abs err {e})")
             errs["probe_pack"] = max(errs["probe_pack"], e)
             hits = int(np.unpackbits(got.cpu().numpy().astype("<u4").view(
                 np.uint8)).sum())
             if (hits == 0) != (mode == "compare" and arg == 0):
-                raise AssertionError(f"K5 {mode} {arg}: {hits} hits")
+                raise AssertionError(f"K5 {what}: {hits} hits")
+            nfw = 0 if fw is None else fw.numel()
             reads = sol.probe_reads(filt, h, bits, fw)
             b_ms, b_by = sol.bound(*sol.probe_pack_account(
-                n, mode, reads, 0 if fw is None else fw.numel(), bits.numel()),
-                int_ops)
+                n, kmode, reads, nfw, bits.numel()), int_ops)
             k_ms = device_ms(lambda: kernels.probe_pack(filt, h, bits, fw),
                              "probe_pack_kernel")
             p_ms = time_ms(lambda: filters.probe_pack_plain(filt, h, bits, fw))
             k5_cases[f"{n}_{mode}_{arg}"] = {
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "hits": hits, "probe_reads": reads}
-            phase("7", f"probe_pack at {n} keys, {mode} {arg}: == plain ({hits} "
+                "hits": hits, "probe_reads": reads, "first_words": nfw,
+                "probes": filt.blf_probes if filt.mode == "bloom" else None}
+            phase("7", f"probe_pack at {n} keys, {what}: == plain ({hits} "
                        f"hits, {reads} bit words read; max abs err "
                        f"{errs['probe_pack']}, tolerance 0); kernel {k_ms:.4f} ms"
                        f" on the device (torch.profiler), plain {p_ms:.4f} ms "
@@ -1484,16 +1617,83 @@ def main() -> int:
             if b_ms > k_ms:
                 raise AssertionError(f"probe_pack runs in {k_ms:.4f} ms, under "
                                      f"its least time {b_ms:.4f} ms")
-            del bits, h
+            del h
+            # the fused hash and probe, every plane set, against the plain
+            # hash rows probed by the plain form
+            xs, ys, rows = fused_in[n]
+            fw = planted(fw0, rows[(0, 0, True)][0])
+            for count, planes in PLANE_SETS.items():
+                out = torch.empty((count, n // 32), dtype=torch.int64,
+                                  device=dev)
+                kernels.hash160_probe(filt, xs, ys, planes, bits, fw, out)
+                want = torch.stack([filters.probe_pack_plain(filt, rows[p], bits,
+                                                             fw) for p in planes])
+                torch.cuda.synchronize()
+                e = int((out - want).abs().max())
+                if not torch.equal(out, want):
+                    raise AssertionError(f"hash160_probe differs from its plain "
+                                         f"form at {n} keys x {count} planes, "
+                                         f"{what} (max abs err {e})")
+                errs["hash160_probe"] = max(errs["hash160_probe"], e)
+                if (int(want.count_nonzero()) == 0) != (mode == "compare"
+                                                        and arg == 0):
+                    raise AssertionError(f"hash160_probe {what}: no hit")
+            if n not in FUSED_TIMED_NS:
+                continue
+            # one plane (the default addr33 step): the fused launch against
+            # K1, K5 and the stack of the planes that it replaces
+            planes, out = PLANE_SETS[1], torch.empty((1, n // 32),
+                                                     dtype=torch.int64, device=dev)
+            x, y = xs[0], ys[0]
+
+            def fused():
+                kernels.hash160_probe(filt, xs, ys, planes, bits, fw, out)
+
+            def unfused():
+                torch.stack([kernels.probe_pack(filt, kernels.addr33_hash_rows(
+                    x, y), bits, fw)])
+            k_ms = device_ms(fused, "hash160_probe_kernel")
+            f_ms, f_ops = device_total_ms(fused, 1)
+            u_ms, u_ops = device_total_ms(unfused, 3)
+            reads = sol.probe_reads(filt, rows[(0, 0, True)], bits, fw)
+            nfw = 0 if fw is None else fw.numel()
+            acc = sol.hash_probe_account(n, planes, kmode, reads, nfw,
+                                         bits.numel(), counts)
+            b_ms, b_by = sol.bound(*acc, int_ops)
+            fused_cases[f"{n}_{mode}_{arg}"] = {
+                "ms": k_ms, "device_ms": f_ms, "device_ops": f_ops,
+                "unfused_ms": u_ms, "unfused_ops": u_ops, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": acc[0], "ops": acc[1],
+                "probe_reads": reads, "first_words": nfw}
+            phase("7", f"hash160_probe at {n} keys, {what}: == plain at 1, 2, 6 "
+                       f"and 12 planes (max abs err {errs['hash160_probe']}, "
+                       f"tolerance 0); 1 plane: kernel {k_ms:.4f} ms on the "
+                       f"device (torch.profiler), all device ops {f_ms:.4f} ms "
+                       f"in {f_ops:.0f} against K1 + K5 + stack {u_ms:.4f} ms "
+                       f"in {u_ops:.0f}; bound {b_ms:.4f} ms ({b_by}), share "
+                       f"{b_ms / k_ms:.1%}; card {card}")
+            if b_ms > k_ms:
+                raise AssertionError(f"hash160_probe runs in {k_ms:.4f} ms, "
+                                     f"under its least time {b_ms:.4f} ms")
+            if (mode, arg, n) == ("compare", 160, HASH_N):
+                fused_plain_ms = time_ms(lambda: torch.stack([
+                    filters.probe_pack_plain(filt, hash160.addr33_hash_rows(
+                        x, y), bits, fw)]))
+        del bits
+    del k5_in, fused_in
     # the report's rows: what the default `add` step runs (32 x 4096, the
     # puzzle list's compare probe at 160 first words)
     main4, main5 = k4_cases[str(HASH_N)], k5_cases[f"{HASH_N}_compare_160"]
+    main_f = fused_cases[f"{HASH_N}_compare_160"]
     t["add_chords"] = (main4["ms"], main4["plain_ms"])
     call_ms["add_chords"] = main4["call_ms"]
     bounds["add_chords"] = (main4["bound_ms"], main4["bound_by"])
     t["probe_pack"] = (main5["ms"], main5["plain_ms"])
     call_ms["probe_pack"] = None
     bounds["probe_pack"] = (main5["bound_ms"], main5["bound_by"])
+    t["hash160_probe"] = (main_f["ms"], fused_plain_ms)
+    call_ms["hash160_probe"] = None
+    bounds["hash160_probe"] = (main_f["bound_ms"], main_f["bound_by"])
 
     # --- h: bench at the card's default B ---------------------------------------------
     searched = {k: set(v) for k, v in kernels.WIDTHS.items()}
@@ -1630,6 +1830,7 @@ def main() -> int:
         if min(kernels.LAUNCHES[k] for k in ADD_KERNELS) < n:
             raise AssertionError(f"{name}: a shard's kernel never ran: "
                                  f"{kernels.LAUNCHES}")
+        fused_only(kernels.LAUNCHES, name)
         privs = {f.priv for f in found}
         if cfg.endo:
             ok = 0xC936 in privs and eng.k_checked == 196_602
@@ -1656,6 +1857,7 @@ def main() -> int:
                                      for k in MUL_KERNELS) < 2:
         raise AssertionError(f"sharded mul: k_checked {meng.k_checked}, "
                              f"launches {kernels.LAUNCHES}")
+    fused_only(kernels.LAUNCHES, "mul_sharded")
     a1, a2, a4, m2 = (split_runs[k] for k in (
         "add_one_device", "add_sharded", "add_sharded_endo", "mul_sharded"))
     phase("k", f"AddSearch over [cuda:0] x 2 ({a2['centers']} centers), add -r "
@@ -1684,6 +1886,7 @@ def main() -> int:
         if min(r["launches"][k] for k in ADD_KERNELS) < 1:
             raise AssertionError(f"process {i}: a kernel never ran: "
                                  f"{r['launches']}")
+        fused_only(r["launches"], f"process {i}")
     if sets[0] & sets[1] or sets[0] | sets[1] != NINE_KEYS:
         raise AssertionError(f"two processes found {sorted(map(hex, sets[0]))}"
                              f" and {sorted(map(hex, sets[1]))}")
@@ -1705,6 +1908,9 @@ def main() -> int:
             if traced["launches"][k] < 1 or tr["kernels"][k]["in_replays"] < 1:
                 raise AssertionError(f"{name} trace: no {k} event inside a "
                                      f"graph replay: {tr}")
+        fused_only(traced["launches"], name)
+        if any(tr["kernels"][k]["events"] for k in UNFUSED):
+            raise AssertionError(f"{name} trace: K1 or K5 ran alone: {tr}")
         for k in searched:
             searched[k] |= set(traced["widths"][k])
         traces[name] = {
@@ -1737,8 +1943,8 @@ def main() -> int:
         run = traced_path(f"add -r {PROFILE_RANGE}",
                           ["add", "-f", PUZZLES, "-r", PROFILE_RANGE],
                           ADD_KERNELS)
-        # inside an `add` replay only K1, K2, K4, K5 and copies run: no
-        # plain chord, probe or pack op is left on the card's path
+        # inside an `add` replay only K2, K4, the fused K1 + K5 and copies
+        # run: no plain chord, probe or pack op is left on the card's path
         plain_ops = {k: v for k, v in traces[f"add -r {PROFILE_RANGE}"][
             "trace"]["other_replay_kernels"].items() if "memcpy" not in k.lower()}
         if plain_ops:
@@ -1786,7 +1992,8 @@ def main() -> int:
                f"{t['hash160'][0]:.4f} ms)")
     checked = {"hash160": set(hash_ns), "inv_mod_batch": set(inv_ns),
                "mixed_add": {MUL_N, HASH_N, VERIFY_N},
-               "add_chords": set(chord_ns), "probe_pack": set(hash_ns)}
+               "add_chords": set(chord_ns), "probe_pack": set(hash_ns),
+               "hash160_probe": set(hash_ns)}
     for name in searched:
         searched[name] |= kernels.WIDTHS[name]
         for r in procs_out:
@@ -1852,7 +2059,8 @@ def main() -> int:
               plain_ms_addr65=t["hash160_addr65"][1],
               bound_ms_addr65=bounds["hash160_addr65"][0],
               ops_per_key=hops, sass=sass, sass_bound_ms=sass_bound,
-              ptxas={k: v for k, v in ptxas.items() if "hash160" in k}),
+              ptxas={k: v for k, v in ptxas.items()
+                     if k.startswith("hash160_addr")}),
         entry("inv_mod_batch", "inv_mod_batch",
               "ecloop_tpu_torch/csrc/inv_batch.cu",
               "ecloop_tpu/pallas_kernels.py:78", chain_floor_ms=chain_ms,
@@ -1876,7 +2084,15 @@ def main() -> int:
         entry("probe_pack", "probe_pack", "ecloop_tpu_torch/csrc/probe_pack.cu",
               "ecloop_tpu/search/add.py:220 (make_step's device_probe and "
               "_pack_mask, compiled by XLA)", cases=k5_cases,
-              ptxas={k: v for k, v in ptxas.items() if "probe" in k}),
+              ptxas={k: v for k, v in ptxas.items()
+                     if k.startswith("probe_pack")}),
+        entry("hash160_probe", "hash160_probe",
+              "ecloop_tpu_torch/csrc/hash160_probe.cu",
+              "ecloop_tpu/pallas_kernels.py:156 with ecloop_tpu/search/add.py:"
+              "220 (K1's hash with make_step's device_probe and _pack_mask "
+              "as its epilogue)", cases=fused_cases,
+              ptxas={k: v for k, v in ptxas.items()
+                     if k.startswith("hash160_probe")}),
     ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
         "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
         "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,

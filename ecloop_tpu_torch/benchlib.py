@@ -15,13 +15,14 @@ bodies run eagerly, once: a check of the path, not a measurement.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 
 import numpy as np
 import torch
 
-from . import bloom, ecc, fel, golden, graphs, kernels, sol
+from . import bloom, ecc, fel, filters, golden, graphs, kernels, sol
 from .search import mul
 from .search.common import SearchConfig
 
@@ -229,17 +230,28 @@ def bench_rows(device, B: int | None = None, R: int | None = None,
         bench(name, lambda a: (kernels.inv_mod_batch(a),), (a,),
               max(1, R // 16), B, sol.inv_account(B), unroll=True)
 
-    # the production chord pair: one inverse serves the +- mirror
-    # neighbours (search/add.make_step)
+    # the production chord pair (search/add.make_step's K4): chord_dx and
+    # chord_points of one step of B keys (m centers x k, k = 4096 where B
+    # allows; the denominators stand in for their inverses), each
+    # iteration's advanced centers feeding the next; elements are keys
     name = ROW_NAMES[4]
     if want(name):
-        def chord(px, py, qx, qy, inv):
-            xp, yp = ecc.affine_add_rows(px, py, qx, qy, inv)
-            xm, ym = ecc.affine_add_rows(px, py, qx, fel.neg_mod(qy), inv)
-            return fel.add_mod(xp, xm), fel.add_mod(yp, ym), qx, qy, inv
-        st = (a, b) + tuple(rand_limbs(rng, B, device) for _ in range(3))
-        bench(name, chord, st, max(1, R // 8), 2 * B,
-              (B * (80 + 32) * limb, B * _ops(chord, *st)))
+        k = math.gcd(B, 4096)
+        m = B // k
+        tx, ty = rand_limbs(rng, k // 2, device), rand_limbs(rng, k // 2, device)
+        dpx, dpy = (rand_limbs(rng, 1, device)[:, 0].contiguous()
+                    for _ in range(2))
+
+        def chord(cx, cy):
+            dx = kernels.chord_dx(cx, tx, dpx)
+            _, _, ncx, ncy = kernels.chord_points(cx, cy, tx, ty, dpx, dpy, dx,
+                                                  False, False)
+            return ncx, ncy
+        acc = sol.chord_account(m, k, False, False)
+        bench(name, chord, (rand_limbs(rng, m, device),
+                            rand_limbs(rng, m, device)), R, B,
+              tuple(a + b for a, b in zip(acc["chord_dx"],
+                                          acc["chord_points"])), unroll=True)
 
     # projective / Jacobian comparison rows (reference bench.c:24-36)
     bf = max(1024, B // 16)
@@ -304,19 +316,24 @@ def bench_rows(device, B: int | None = None, R: int | None = None,
                   sol.hash_account(B, is33, sol.hash_counts(is33)),
                   unroll=True)
 
-    # the hash-list prefilter probe (pow2 bloom over a 2^16-bit array)
+    # the hash-list prefilter probe (K5, pow2 over a 2^16-bit array), each
+    # iteration's hit words folded into the next one's first hash words;
+    # the bit words read are those of the first iteration's data
     name = ROW_NAMES[13]
     if want(name):
         bits = bloom.bits_tensor(rng.integers(0, 1 << 32, size=1 << 11,
                                               dtype=np.uint64).astype(
                                                   np.uint32), device)
+        filt = filters.Filter(mode="list", targets=None, blf=None,
+                              device_bits=None, pow2_log2=16)
 
-        def probe(x):
-            hit = bloom.probe_pow2(x[:5], bits, log2_bits=16, nprobes=2)
-            x[0].bitwise_xor_(hit.to(torch.int64))
-            return (x,)
-        bench(name, probe, (a.clone(),), R, B,
-              (B * (5 + 1) * limb, B * (2 * sol.PROBE_POW2_OPS + 1)))
+        def probe(h):
+            h[0, :B // 32].bitwise_xor_(kernels.probe_pack(filt, h, bits))
+            return (h,)
+        h = a[:5].clone()
+        bench(name, probe, (h,), R, B, sol.probe_pack_account(
+            B, "pow2", sol.probe_reads(filt, h, bits), bits_words=bits.numel()),
+            unroll=True)
     return rows
 
 

@@ -232,6 +232,30 @@ def probe_exact(h: torch.Tensor, bits: torch.Tensor, nbits: int,
     return hit == 1
 
 
+def exact_reciprocal(nbits: int) -> int:
+    """r = floor((2^64 - 1) / m) for a filter of nbits = 64 m bits
+    (m <= 2^31): the kernels' exact probe reduces with it (exact_bit)."""
+    if not (64 <= nbits <= 1 << 37 and nbits % 64 == 0):
+        raise ValueError(f"unsupported filter size: {nbits} bits")
+    return (2**64 - 1) // (nbits // 64)
+
+
+def exact_bit(idx: int, nbits: int, r: int) -> int:
+    """idx mod nbits for a 64-bit probe index, by the integer steps of the
+    kernels' exact probe (csrc/probe.cuh: probe_bit): with a = idx >> 6
+    and m = nbits / 64, q = umulhi(a, r) is floor(a / m) or one less, so
+    a - q m lies in [0, 2m) and, as 2m <= 2^32, equals its low 32 bits;
+    one conditional subtract leaves a mod m, and the bit is
+    ((a mod m) << 6) | (idx & 63)."""
+    m = nbits // 64
+    a = idx >> 6
+    q = (a * r) >> 64
+    rem = ((a & M32) - (q & M32) * m) & M32
+    if rem >= m:
+        rem -= m
+    return (rem << 6) | (idx & 63)
+
+
 def probe_pow2(h: torch.Tensor, bits: torch.Tensor, log2_bits: int,
                nprobes: int = 2) -> torch.Tensor:
     """Power-of-two prefilter probe: the same indices, mod 2^log2_bits."""

@@ -6,97 +6,66 @@
 // ecloop_tpu/search/mul.py) that XLA fuses on the TPU; the plain form is
 // ecloop_tpu_torch/filters.py:probe_pack_plain.  Input: K1's (5, n) words
 // (int64, values below 2^32), n a multiple of 32.  Output: (n/32,) int64
-// words below 2^32, bit i of word w set when key 32w + i passes.  Modes
-// (filters.Filter.device_probe):
-//   0 compare  the first hash word in the sorted unique first words of
-//              the targets: a search of fixed depth (ceil(log2 nfw)
-//              steps) and one equality test; none -> no hit
-//   1 exact    the first nprobes (1..20) ECBF probe indices, each
-//              (hi * 2^32 + lo) mod nbits with one uint64_t %, every
-//              bit set (bloom.probe_exact)
-//   2 pow2     the same indices mod 2^log2_bits (bloom.probe_pow2)
-// The probe index is bloom._probe_pairs's as one 64-bit word: the five
-// overlapping u64s a[i] of the hash, shifted for s in SHIFTS, i in
-// 0..4, (a[i] << s) | (a[i+1 mod 5] >> s).  A probe stops at its first
-// clear bit (the AND is already 0).  The bits are the filter's u32 words.
+// words below 2^32, bit i of word w set when key 32w + i passes.  The
+// probe itself, in its three modes, is probe.cuh's; the searches run it
+// as the epilogue of the hash (hash160_probe.cu), and this entry serves
+// the bench, the checks and any caller that holds hash rows.
 //
 // One thread per key; __ballot_sync over the warp gives the packed word
 // in the little-endian order of pack_mask (lane i = key 32w + i).
 //
-// Bound: bytes at the list mode's one compare (40 bytes of hash words
-// per key against a few operations); the exact probe's 64-bit remainders
-// cost ~70 operations each, so a filter at many probes is bound by them.
+// Bound: bytes at the compare mode's one search (8 bytes of hash word per
+// key against a few operations); the exact probe's reads past the L2 at
+// a large filter, which the grouped loads overlap.
 //
 // Launches on the given stream, allocates nothing, does not synchronise.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "probe.cuh"
+
 namespace {
 
-__device__ __forceinline__ bool bit_set(const uint32_t* __restrict__ bits, uint64_t r) {
-  return (__ldg(bits + (r >> 5)) >> (r & 31)) & 1u;
-}
+using namespace ecl;
 
+template <int MODE>
 __global__ void __launch_bounds__(256)
-    probe_pack_kernel(const int64_t* __restrict__ h, int64_t n, int mode,
-                      const uint32_t* __restrict__ bits, uint64_t nbits, int nprobes,
-                      int log2_bits, const int64_t* __restrict__ fw, int64_t nfw,
+    probe_pack_kernel(const int64_t* __restrict__ h, int64_t n, probe::Args p,
                       int64_t* __restrict__ out) {
+  extern __shared__ uint32_t first_words[];
+  probe::stage<MODE>(p, first_words);
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;  // n % 32 == 0: whole warps leave together
-  bool hit;
-  if (mode == 0) {
-    const int64_t key = h[e];
-    hit = false;
-    if (nfw > 0) {
-      const int64_t* base = fw;
-      int64_t len = nfw;
-      while (len > 1) {  // the last first word <= key lies in [base, base + len)
-        const int64_t half = len >> 1;
-        base = (__ldg(base + half) <= key) ? base + half : base;
-        len -= half;
-      }
-      hit = __ldg(base) == key;
-    }
+  uint32_t w[5];
+  if (MODE == probe::kCompare || MODE == probe::kCompareGlobal) {
+    w[0] = (uint32_t)h[e];  // the search reads the first word alone
   } else {
-    uint32_t w[5];
 #pragma unroll
     for (int i = 0; i < 5; ++i) w[i] = (uint32_t)h[i * n + e];
-    uint64_t a[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      const int hi = (2 * i) % 5, lo = (2 * i + 1) % 5;
-      a[i] = ((uint64_t)w[hi] << 32) | w[lo];
-    }
-    const uint64_t mask = (1ull << log2_bits) - 1;
-    hit = true;
-#pragma unroll
-    for (int p = 0; p < 20; ++p) {
-      if (p >= nprobes || !hit) break;
-      const int s = p < 5 ? 24 : p < 10 ? 28 : p < 15 ? 36 : 40, i = p % 5;  // SHIFTS
-      const uint64_t idx = (a[i] << s) | (a[(i + 1) % 5] >> s);
-      hit = bit_set(bits, mode == 1 ? idx % nbits : idx & mask);
-    }
   }
-  const uint32_t word = __ballot_sync(0xFFFFFFFFu, hit);
+  const uint32_t word = __ballot_sync(0xFFFFFFFFu, probe::passes<MODE>(p, w, first_words));
   if ((threadIdx.x & 31) == 0) out[e >> 5] = (int64_t)word;
 }
 
 }  // namespace
 
-// h: (5, n) int64 words, n a multiple of 32; bits: the filter's u32 words;
-// fw: nfw sorted unique int64 first words (mode 0); out: (n/32,) int64.
-// Returns cudaGetLastError() after the launch.
+// h: (5, n) int64 words, n a multiple of 32; mode 0 compare, 1 exact,
+// 2 pow2; bits: the filter's u32 words; m, r: exact's nbits / 64 and
+// floor((2^64 - 1) / m); fw: nfw sorted unique int64 first words (mode 0);
+// out: (n/32,) int64.  Returns cudaGetLastError() after the launch.
 extern "C" int ecl_probe_pack(const void* h, long long n, int mode, const void* bits,
-                              unsigned long long nbits, int nprobes, int log2_bits,
-                              const void* fw, long long nfw, void* out, void* stream) {
+                              unsigned long long m, unsigned long long r, int nprobes,
+                              int log2_bits, const void* fw, long long nfw, void* out,
+                              void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  probe_pack_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                      (cudaStream_t)stream>>>((const int64_t*)h, (int64_t)n, mode,
-                                              (const uint32_t*)bits, (uint64_t)nbits,
-                                              nprobes, log2_bits, (const int64_t*)fw,
-                                              (int64_t)nfw, (int64_t*)out);
-  return (int)cudaGetLastError();
+  const probe::Args p = probe::make_args(bits, m, r, nprobes, log2_bits, fw, nfw);
+  return probe::with_mode(mode, nfw, [&](auto mode_c) {
+    constexpr int MODE = decltype(mode_c)::value;
+    const int threads = 256;
+    probe_pack_kernel<MODE><<<(unsigned)((n + threads - 1) / threads), threads,
+                              probe::shared_bytes(MODE, nfw), (cudaStream_t)stream>>>(
+        (const int64_t*)h, (int64_t)n, p, (int64_t*)out);
+    return (int)cudaGetLastError();
+  });
 }

@@ -6,10 +6,13 @@
   K3  proj_add_affine                      -> csrc/mixed_add.cu
   K4  chord_dx, chord_points               -> csrc/add_chords.cu
   K5  probe_pack                           -> csrc/probe_pack.cu
+  K1 + K5 hash160_probe                    -> csrc/hash160_probe.cu
 
 K1-K3 port the JAX package's Pallas kernels; K4 and K5 port the stages
 of its `add` step that XLA compiles around them (the chords with the
-endomorphism rows, and the prefilter probe with the mask packing).
+endomorphism rows, and the prefilter probe with the mask packing).  The
+searches run K1 with K5 as its epilogue (`hash160_probe`: the hash rows
+stay in registers); K1 and K5 alone serve the bench and the checks.
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the kernel on its device's current stream, or raises.
@@ -26,14 +29,15 @@ and `graphs.Graph` counts it at each replay (`count_launches`).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
-from . import _build, ecc, fel, filters, hash160
+from . import _build, bloom, ecc, fel, filters, hash160
 
 NLIMBS = 16
 LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0,
-            "add_chords": 0, "probe_pack": 0}
+            "add_chords": 0, "probe_pack": 0, "hash160_probe": 0}
 WIDTHS = {k: set() for k in LAUNCHES}
 _recorder: list | None = None
 
@@ -266,6 +270,50 @@ def chord_points(cx, cy, tx, ty, dpx, dpy, inv, need_beta: bool,
 
 
 PROBE_MODES = {"compare": 0, "exact": 1, "pow2": 2}
+MAX_PLANES = 6              # planes of one address form per hash160_probe launch
+
+
+def _check_probe_inputs(bits: torch.Tensor, first_words, device) -> None:
+    """bits: the filter's 1-D int32 words; first_words: None or 1-D int64;
+    both on `device`."""
+    if not isinstance(bits, torch.Tensor) or bits.dtype != torch.int32 \
+            or bits.dim() != 1:
+        raise TypeError("bits: expected a 1-D int32 tensor")
+    if first_words is not None and (
+            not isinstance(first_words, torch.Tensor)
+            or first_words.dtype != torch.int64 or first_words.dim() != 1):
+        raise TypeError("first_words: expected a 1-D int64 tensor")
+    for name, t in (("bits", bits), ("first_words", first_words)):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the keys on {device}")
+
+
+def _probe_args(filt: filters.Filter, bits: torch.Tensor,
+                first_words: torch.Tensor | None) -> tuple:
+    """The probe's launch arguments (csrc/probe.cuh): mode, bits, m, r,
+    nprobes, log2_bits, first words and their count.  The exact probe
+    takes nbits = 64 m with m <= 2^31 and r = floor((2^64 - 1) / m)."""
+    if filt.mode == "bloom":
+        mode, nbits, nprobes = "exact", filt.blf.nbits, filt.blf_probes
+        r = bloom.exact_reciprocal(nbits)
+        if not 1 <= nprobes <= 20:
+            raise ValueError(f"probes: {nprobes}, expected 1 to 20")
+    elif first_words is not None:
+        mode, nbits, nprobes, r = "compare", 0, 0, 0
+    else:
+        mode, nbits, nprobes, r = "pow2", 1 << filt.pow2_log2, 2, 0
+    if bits.numel() * 32 < nbits:
+        raise ValueError(f"bits: {bits.numel()} words, the {mode} probe "
+                         f"reads {nbits} bits")
+    fw = first_words if mode == "compare" else None
+    for name, t in (("bits", bits), ("first_words", fw)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: kernel input must be contiguous")
+    return (PROBE_MODES[mode], bits.data_ptr(),
+            nbits // 64 if mode == "exact" else 0, r, nprobes,
+            filt.pow2_log2 if mode == "pow2" else 0,
+            fw.data_ptr() if fw is not None else None,
+            fw.numel() if fw is not None else 0)
 
 
 def probe_pack(filt: filters.Filter, h: torch.Tensor, bits: torch.Tensor,
@@ -280,42 +328,77 @@ def probe_pack(filt: filters.Filter, h: torch.Tensor, bits: torch.Tensor,
         raise ValueError(f"h: expected shape (5, B), got {tuple(h.shape)}")
     if h.shape[1] % 32:
         raise ValueError(f"h: {h.shape[1]} keys, not a multiple of 32")
-    if not isinstance(bits, torch.Tensor) or bits.dtype != torch.int32 \
-            or bits.dim() != 1:
-        raise TypeError("bits: expected a 1-D int32 tensor")
-    tensors = {"bits": bits}
-    if first_words is not None:
-        if first_words.dtype != torch.int64 or first_words.dim() != 1:
-            raise TypeError("first_words: expected a 1-D int64 tensor")
-        tensors["first_words"] = first_words
-    for name, t in tensors.items():
-        if t.device != h.device:
-            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    _check_probe_inputs(bits, first_words, h.device)
     if h.device.type == "cpu":
         return filters.probe_pack_plain(filt, h, bits, first_words)
-    if filt.mode == "bloom":
-        mode, nbits, nprobes = "exact", filt.blf.nbits, filt.blf_probes
-        if not (64 <= nbits <= 1 << 37 and nbits % 64 == 0):
-            raise ValueError(f"unsupported filter size: {nbits} bits")
-        if not 1 <= nprobes <= 20:
-            raise ValueError(f"probes: {nprobes}, expected 1 to 20")
-    elif first_words is not None:
-        mode, nbits, nprobes = "compare", 0, 0
-    else:
-        mode, nbits, nprobes = "pow2", 1 << filt.pow2_log2, 2
-    if bits.numel() * 32 < nbits:
-        raise ValueError(f"bits: {bits.numel()} words, the {mode} probe "
-                         f"reads {nbits} bits")
-    for name, t in (("h", h), *tensors.items()):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: kernel input must be contiguous")
+    args = _probe_args(filt, bits, first_words)
+    if not h.is_contiguous():
+        raise ValueError("h: kernel input must be contiguous")
     n = h.shape[1]
     out = torch.empty((n // 32,), dtype=torch.int64, device=h.device)
     if n:
-        fw = first_words if mode == "compare" else None
-        _launch("ecl_probe_pack", h.device, h.data_ptr(), n,
-                PROBE_MODES[mode], bits.data_ptr(), nbits, nprobes,
-                filt.pow2_log2 or 0, fw.data_ptr() if fw is not None else None,
-                fw.numel() if fw is not None else 0, out.data_ptr())
+        _launch("ecl_probe_pack", h.device, h.data_ptr(), n, *args,
+                out.data_ptr())
         _count("probe_pack", n)
+    return out
+
+
+def hash160_probe(filt: filters.Filter, xs, ys, planes, bits: torch.Tensor,
+                  first_words: torch.Tensor | None,
+                  out: torch.Tensor) -> torch.Tensor:
+    """K1 with K5 as its epilogue: for plane v of `planes`, v = (i, j,
+    is33), out[v] receives the packed hit words of `filt`'s prefilter
+    probe of the hash160 of the keys whose x is xs[i] and y is ys[j],
+    compressed when is33; returns out.  xs holds 1 to 3 and ys 1 or 2
+    (16, B) limb rows (a step's x, beta x, beta^2 x and y, -y), B a
+    multiple of 32; out is (V, B/32) int64; bits and first_words as for
+    `filt.device_probe`.  On the CPU each plane is K1's and K5's plain
+    forms; on the card one launch per address form covers its planes (at
+    most MAX_PLANES), and the hash rows never reach memory."""
+    xs, ys = tuple(xs), tuple(ys)
+    if not (1 <= len(xs) <= 3 and 1 <= len(ys) <= 2):
+        raise ValueError(f"{len(xs)} x rows and {len(ys)} y rows, expected "
+                         f"1 to 3 and 1 or 2")
+    rows = {f"xs[{k}]": t for k, t in enumerate(xs)}
+    rows.update({f"ys[{k}]": t for k, t in enumerate(ys)})
+    for name, t in rows.items():
+        _check_rows(name, t, 2)
+    _check_same(xs[0], **rows)
+    dev, n = xs[0].device, xs[0].shape[1]
+    if n % 32:
+        raise ValueError(f"{n} keys per row, not a multiple of 32")
+    planes = [(int(i), int(j), bool(is33)) for i, j, is33 in planes]
+    if not planes or not all(0 <= i < len(xs) and 0 <= j < len(ys)
+                             for i, j, _ in planes):
+        raise ValueError(f"planes {planes}: each (x row, y row, is33) must "
+                         f"name one of {len(xs)} x and {len(ys)} y rows")
+    if max(sum(p[2] == f for p in planes) for f in (True, False)) > MAX_PLANES:
+        raise ValueError(f"planes {planes}: more than {MAX_PLANES} of one "
+                         f"address form")
+    if (not isinstance(out, torch.Tensor) or out.dtype != torch.int64
+            or tuple(out.shape) != (len(planes), n // 32)
+            or out.device != dev):
+        raise ValueError(f"out: expected an int64 tensor of shape "
+                         f"{(len(planes), n // 32)} on {dev}")
+    _check_probe_inputs(bits, first_words, dev)
+    if dev.type == "cpu":
+        for v, (i, j, is33) in enumerate(planes):
+            h = (hash160.addr33_hash_rows if is33
+                 else hash160.addr65_hash_rows)(xs[i], ys[j])
+            out[v] = filters.probe_pack_plain(filt, h, bits, first_words)
+        return out
+    args = _probe_args(filt, bits, first_words)
+    if not out.is_contiguous():
+        raise ValueError("out: kernel output must be contiguous")
+    ptrs = [t.data_ptr() for t in xs] + [0] * (3 - len(xs)) \
+        + [t.data_ptr() for t in ys] + [0] * (2 - len(ys))
+    row_ptrs = (ctypes.c_ulonglong * 5)(*ptrs)
+    for is33 in (True, False):
+        table = [c for v, (i, j, f) in enumerate(planes) if f == is33
+                 for c in (i, j, v)]
+        if n and table:
+            _launch("ecl_hash160_probe", dev, row_ptrs,
+                    (ctypes.c_int * len(table))(*table), len(table) // 3,
+                    int(is33), n, *args, out.data_ptr())
+            _count("hash160_probe", n)
     return out

@@ -3,8 +3,9 @@
 The port of `ecloop_tpu.search.add`.  M group centers advance in
 lockstep, each with K neighbours from a shared table, so one step covers
 M*K keys with one batched inversion (K2) for all the chords; every
-candidate pubkey then goes through hash160 (K1) and the filter's device
-prefilter, and the host receives only packed hit masks.  Hits are
+candidate pubkey then goes through hash160 and the filter's device
+prefilter in one kernel (K1 with K5 as its epilogue), and the host
+receives only packed hit masks.  Hits are
 confirmed and re-derived on the host.
 
 Key layout per step t (stride s = 2^offs, h = K/2):
@@ -122,26 +123,25 @@ def make_step(cfg: SearchConfig, filt: Filter, device):
 
     The table holds only the positive multiples T[j] = (j+1)*s*G; the
     mirror neighbours C - T[j] share T[j].x, so one inverted dx serves the
-    +- pair.  Five kernels: the chords' denominators (K4, `chord_dx`),
+    +- pair.  Four kernels: the chords' denominators (K4, `chord_dx`),
     their batch inversion (K2), the chords, the center advance and the
-    endo rows (K4, `chord_points`), then per variant hash160 (K1) and the
-    probe with its mask packing (K5)."""
+    endo rows (K4, `chord_points`), then hash160 with the probe and its
+    mask packing as the epilogue (K1 + K5, `hash160_probe`: one launch
+    per address form over its endo planes)."""
     variants = _variants(cfg)
     need_beta = any(e >= 2 for e, _ in variants)
     need_neg = any(e % 2 for e, _ in variants)
+    planes = [(*EMAP[e], is33) for e, is33 in variants]
     first_words = filt.first_words(device)
 
     def step(cx, cy, tx, ty, dpx, dpy, bits):
         inv = kernels.inv_mod_batch(kernels.chord_dx(cx, tx, dpx))
         xs, ys, ncx, ncy = kernels.chord_points(cx, cy, tx, ty, dpx, dpy, inv,
                                                 need_beta, need_neg)
-        masks = []
-        for e, is33 in variants:
-            xv, yv = EMAP[e]
-            hw = (kernels.addr33_hash_rows if is33
-                  else kernels.addr65_hash_rows)(xs[xv], ys[yv])
-            masks.append(kernels.probe_pack(filt, hw, bits, first_words))
-        return ncx, ncy, torch.stack(masks)
+        masks = torch.empty((len(planes), cfg.keys_per_step // 32),
+                            dtype=torch.int64, device=cx.device)
+        kernels.hash160_probe(filt, xs, ys, planes, bits, first_words, masks)
+        return ncx, ncy, masks
 
     return step
 

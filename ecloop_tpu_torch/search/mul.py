@@ -227,11 +227,11 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
     int32 window digits, txy the table, bits the filter's device bits;
     masks is (V, batch/32) int64, one packed hit plane per address form.
     The window scan (`window_scan`) starts at infinity; one K2 call
-    reduces to affine, then K1 hashes and K5 probes the filter and packs
-    the hits."""
+    reduces to affine, then K1 hashes with K5's probe and mask packing as
+    its epilogue (`hash160_probe`)."""
     device = torch.device(device)
     d = n_windows(w)
-    labels = _labels(cfg)
+    planes = [(0, 0, is33) for _, is33 in _labels(cfg)]
     first_words = filt.first_words(device)
     offs = window_offsets(w, device)
     zero = torch.zeros((NLIMBS, batch), dtype=torch.int64, device=device)
@@ -243,12 +243,10 @@ def make_mul_step(cfg: SearchConfig, filt: Filter, w: int, batch: int,
         idx, skip = window_index(dig, offs)
         qx, qy, qz = window_scan(txy, idx, skip, (zero, one, zero))
         ax, ay = ecc.proj_to_affine_rows(qx, qy, qz, inv=kernels.inv_mod_batch)
-        masks = []
-        for _, is33 in labels:
-            hw = (kernels.addr33_hash_rows if is33
-                  else kernels.addr65_hash_rows)(ax, ay)
-            masks.append(kernels.probe_pack(filt, hw, bits, first_words))
-        return torch.stack(masks)
+        masks = torch.empty((len(planes), batch // 32), dtype=torch.int64,
+                            device=device)
+        return kernels.hash160_probe(filt, (ax,), (ay,), planes, bits,
+                                     first_words, masks)
 
     return step
 

@@ -23,8 +23,9 @@ running its function on one key (`HashOpCount`), K2 and K3 by their own
 accounts (`inv_account`, `mixed_add_account`), K4 by running its plain
 forms on data-free tensors of the step's shapes (`chord_account`), K5
 from the probe terms below and the probes its data reads
-(`probe_pack_account`, `probe_reads`); `chip_smoke.py` holds their
-device times against these.
+(`probe_pack_account`, `probe_reads`), K1 with K5 as its epilogue by
+both (`hash_probe_account`); `chip_smoke.py` holds their device times
+against these.
 """
 
 from __future__ import annotations
@@ -62,14 +63,18 @@ FIELD_PRICE = {
 # and one inversion per call
 COUNTED = tuple(FIELD_PRICE) + ("inv_mod_batch",)
 HASH_LIMBS = {True: 16 + 1 + 5, False: 32 + 5}   # read (x, y's parity) + written
-# probes, read off bloom.py / filters.py as 32-bit work per element: a
-# pow2 probe derives its low index word (3 shifts, 2 ors), masks and
-# shifts it (2), loads a word (1), extracts the bit (3) and ands it (1);
-# an exact probe adds 4 reductions of a 64-bit value mod the filter size
-# (16 each with a multiply-high); the list-mode prefilter compares the
-# first hash word with each target's (one op per target).
+# probes, read off csrc/probe.cuh as 32-bit work per element: a pow2
+# probe derives its low index word (3 shifts, 2 ors), masks and shifts it
+# (2), loads a word (1), extracts the bit (3) and ands it (1); an exact
+# probe also derives the high index word (2) and reduces the index mod
+# nbits = 64 m by a multiply-high (16: a = idx >> 6 in 2; umulhi(a, r) in
+# 11, the high half of one and the full 64 bits of three 32 x 32
+# products with the middle column's 4 carries; a - q m in 1 multiply-add
+# on the low words; the conditional subtract in 2), its word index taking
+# the place of the pow2 mask; the list-mode prefilter compares the first
+# hash word with each target's (one op per target).
 PROBE_POW2_OPS = 11
-PROBE_EXACT_OPS = 11 + 2 + 4 * 16
+PROBE_EXACT_OPS = 11 + 2 + 16
 # K5 (csrc/probe_pack.cu) searches the sorted first words instead: per
 # level an add, a compare and a select, then one compare; each key's bit
 # is packed by one warp vote
@@ -245,23 +250,56 @@ def probe_reads(filt, h: torch.Tensor, bits: torch.Tensor,
     return reads
 
 
-def probe_pack_account(n: int, mode: str, reads: int = 0, n_first: int = 0,
-                       bits_words: int = 0) -> tuple[float, float]:
-    """K5 over n keys (csrc/probe_pack.cu): (bytes, operations).  Mode
-    "compare": the first hash word per key and the n_first sorted first
-    words once; a search of ceil(log2 n_first) levels and a compare per
-    key.  Modes "exact" and "pow2": the five hash words per key and the
+def _probe_work(keys: int, mode: str, reads: int, n_first: int,
+                bits_words: int) -> tuple[float, float]:
+    """The probe's own (bytes, operations) over `keys` keys, its input
+    hash words and output mask words aside: compare mode reads the
+    n_first sorted first words once and searches them, ceil(log2
+    n_first) levels and a compare per key; exact and pow2 read the
     `reads` probed bit words (`probe_reads`), 4 bytes each but at most
-    the filter's bits_words once; PROBE_EXACT_OPS or PROBE_POW2_OPS per
-    read.  Both: one 8-byte word out per 32 keys, a vote per key."""
-    out = n // 32 * 8
+    the filter's bits_words once, PROBE_EXACT_OPS or PROBE_POW2_OPS per
+    read.  Both: a vote per key."""
     if mode == "compare":
         levels = max(n_first - 1, 0).bit_length()
-        ops = n * (levels * PROBE_SEARCH_OPS + int(n_first > 0))
-        return n * 8 + n_first * 8 + out, ops + n * PACK_OPS
+        return n_first * 8, keys * (levels * PROBE_SEARCH_OPS
+                                    + int(n_first > 0) + PACK_OPS)
     per = PROBE_EXACT_OPS if mode == "exact" else PROBE_POW2_OPS
-    return (n * 5 * 8 + 4 * min(reads, bits_words) + out,
-            reads * per + n * PACK_OPS)
+    return 4 * min(reads, bits_words), reads * per + keys * PACK_OPS
+
+
+def probe_pack_account(n: int, mode: str, reads: int = 0, n_first: int = 0,
+                       bits_words: int = 0) -> tuple[float, float]:
+    """K5 over n keys (csrc/probe_pack.cu): (bytes, operations).  The
+    first hash word per key in compare mode, the five otherwise, the
+    probe's own work (`_probe_work`) and one 8-byte word out per 32
+    keys."""
+    nbytes, ops = _probe_work(n, mode, reads, n_first, bits_words)
+    hash_bytes = n * (1 if mode == "compare" else 5) * LIMB_BYTES
+    return hash_bytes + nbytes + n // 32 * 8, ops
+
+
+def hash_probe_account(n: int, planes, mode: str, reads: int = 0,
+                       n_first: int = 0, bits_words: int = 0,
+                       counts: dict | None = None) -> tuple[float, float]:
+    """K1 with K5 as its epilogue (csrc/hash160_probe.cu) over n keys per
+    plane, planes as `kernels.hash160_probe` takes them ((x row, y row,
+    is33) each): (bytes, operations).  Bytes: every x row the planes name
+    read once (16 limbs per key), every y row once (16 limbs, or only its
+    parity limb where addr33 planes alone read it), the probe's own
+    (`_probe_work`, `reads` summed over the planes) and one 8-byte mask
+    word per 32 keys and plane; no hash rows.  Operations: K1's per key
+    and plane (`hash_ops_per_key` of counts[is33], `hash_counts` by
+    default) and the probe's."""
+    counts = counts or {f: hash_counts(f) for f in (True, False)}
+    y_limbs = {}
+    for _, j, is33 in planes:
+        y_limbs[j] = max(y_limbs.get(j, 1), 1 if is33 else fel.NLIMBS)
+    limbs = fel.NLIMBS * len({i for i, _, _ in planes}) + sum(y_limbs.values())
+    nbytes, ops = _probe_work(n * len(planes), mode, reads, n_first,
+                              bits_words)
+    ops += n * sum(hash_ops_per_key(counts[is33]) for *_, is33 in planes)
+    return (n * limbs * LIMB_BYTES + nbytes + len(planes) * (n // 32) * 8,
+            ops)
 
 
 def scan_account(n: int, d: int, active: int) -> tuple[float, float]:

@@ -200,13 +200,53 @@ def test_chord_and_probe_accounts_by_hand():
     assert sol.probe_pack_account(4096, "compare", n_first=0) == (
         4096 * 8 + 128 * 8, 4096)
     # exact: 40 bytes of hash per key, 4 per bit word read (at most the
-    # filter once), 77 ops per probe read
+    # filter once), 29 ops per probe read: the pow2 probe's 11, the high
+    # index word's 2 and the multiply-high remainder's 16
+    assert sol.PROBE_EXACT_OPS == 29
     assert sol.probe_pack_account(4096, "exact", reads=5000,
                                   bits_words=1000) == (
-        4096 * 40 + 4 * 1000 + 128 * 8, 5000 * 77 + 4096)
+        4096 * 40 + 4 * 1000 + 128 * 8, 5000 * 29 + 4096)
     assert sol.probe_pack_account(64, "pow2", reads=100,
                                   bits_words=1 << 20) == (
         64 * 40 + 400 + 16, 100 * 11 + 64)
+
+
+def test_hash_probe_account_by_hand():
+    """K1 with K5 as its epilogue over 64 keys per plane: K1's limb reads
+    (each row the planes name once; a y row that only addr33 planes read
+    costs its parity limb), the probe's reads and the mask words, no hash
+    rows; K1's operations per key and plane and the probe's."""
+    counts = {True: {"alu": 100, "either": 60}, False: {"alu": 200,
+                                                       "either": 500}}
+    # one addr33 plane, compare at 160 first words: x (16 limbs) and y's
+    # parity (1) per key, the list once, 2 mask words; K1's 100 ALU ops
+    # (more than (100 + 60) / 2) and the search's 8 levels, compare, vote
+    assert sol.hash_probe_account(64, [(0, 0, True)], "compare", n_first=160,
+                                  counts=counts) == (
+        64 * 17 * 8 + 160 * 8 + 2 * 8, 64 * 100 + 64 * (8 * 3 + 1 + 1))
+    # -endo -a cu (12 planes over 3 x and 2 y rows), exact: 3 x rows and 2
+    # full y rows, 4 bytes per bit word read up to the filter's 300 words,
+    # 24 mask words; addr65's ops are (200 + 500) / 2 = 350 per key
+    planes = [(x, y, f) for x in range(3) for y in range(2)
+              for f in (True, False)]
+    assert sol.hash_probe_account(64, planes, "exact", reads=1000,
+                                  bits_words=300, counts=counts) == (
+        64 * (3 * 16 + 2 * 16) * 8 + 4 * 300 + 12 * 2 * 8,
+        64 * 6 * (100 + 350) + 1000 * 29 + 12 * 64)
+    # -endo addr33: y and -y read for their parity only; pow2
+    endo33 = [(x, y, True) for x in range(3) for y in range(2)]
+    assert sol.hash_probe_account(64, endo33, "pow2", reads=100,
+                                  bits_words=1 << 20, counts=counts) == (
+        64 * (3 * 16 + 2) * 8 + 400 + 6 * 2 * 8,
+        64 * 6 * 100 + 100 * 11 + 6 * 64)
+    # against K1 and K5 apart: the same operations, without the hash rows
+    # that K1 wrote and K5 read back
+    k1 = sol.hash_account(64, True, counts[True])
+    k5 = sol.probe_pack_account(64, "compare", n_first=160)
+    fused = sol.hash_probe_account(64, [(0, 0, True)], "compare",
+                                   n_first=160, counts=counts)
+    assert fused[1] == k1[1] + k5[1]
+    assert fused[0] == k1[0] + k5[0] - 64 * 5 * 8 - 64 * 8
 
 
 def test_probe_reads_stop_at_the_first_clear_bit():

@@ -214,7 +214,8 @@ def _puzzles():
 def test_graph_call_equals_eager_steps(dev):
     """`build_step_fn`'s graph replay equals T eager steps, over two
     calls, with the centers re-seeded between them (`rnd`'s case), in
-    -endo with both address forms; each call counts T x V K1 launches."""
+    -endo with both address forms; each step launches the fused hash and
+    probe once per address form, and no K1 or K5 alone."""
     cfg = SearchConfig(range_s=0x8000, range_e=0x10000, endo=True,
                        addr65=True, centers=8, group_k=256, steps_per_call=3)
     call = add.build_step_fn(cfg, _puzzles(), dev)
@@ -232,8 +233,10 @@ def test_graph_call_equals_eager_steps(dev):
         assert torch.equal(call.masks, torch.stack(masks))
         assert torch.equal(call.cx, cx) and torch.equal(call.cy, cy)
     n = 2 + 2          # two replays, then the eager steps' own launches
-    assert kernels.LAUNCHES["hash160"] == n * cfg.steps_per_call * v
-    assert kernels.LAUNCHES["probe_pack"] == n * cfg.steps_per_call * v
+    # one hash160_probe launch per address form over its 6 endo planes
+    assert v == 12
+    assert kernels.LAUNCHES["hash160_probe"] == n * cfg.steps_per_call * 2
+    assert kernels.LAUNCHES["hash160"] == kernels.LAUNCHES["probe_pack"] == 0
     assert kernels.LAUNCHES["inv_mod_batch"] == n * cfg.steps_per_call
     assert kernels.LAUNCHES["add_chords"] == 2 * n * cfg.steps_per_call
 
@@ -279,14 +282,15 @@ def test_engines_launch_only_through_graph_replays(dev, monkeypatch):
     kernels.reset_launches()
     assert {f.priv for f in eng.run_range()} == set(targets)
     # 0x800 keys at 8 x 256 per step: one step, so one call per shard
-    assert kernels.LAUNCHES == {"hash160": 2 * 2, "inv_mod_batch": 2 * 2,
+    assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 2 * 2,
                                 "mixed_add": 0, "add_chords": 2 * 2 * 2,
-                                "probe_pack": 2 * 2}
+                                "probe_pack": 0, "hash160_probe": 2 * 2}
     kernels.reset_launches()
     assert {f.priv for f in meng.run_keys(targets + [5, 6])} == set(targets)
-    assert kernels.LAUNCHES == {"hash160": 2, "inv_mod_batch": 2,
+    assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 2,
                                 "mixed_add": 2 * mul.n_windows(8),
-                                "add_chords": 0, "probe_pack": 2}
+                                "add_chords": 0, "probe_pack": 0,
+                                "hash160_probe": 2}
 
 
 def _sharded_add_parity(devices):
@@ -303,7 +307,7 @@ def _sharded_add_parity(devices):
     sharded = add.AddSearch(cfg, filt, devices)
     kernels.reset_launches()
     got = {(f.label, f.priv) for f in sharded.run_range()}
-    assert min(kernels.LAUNCHES["hash160"],
+    assert min(kernels.LAUNCHES["hash160_probe"],
                kernels.LAUNCHES["inv_mod_batch"]) >= len(devices)
     assert got == {(f.label, f.priv) for f in single.run_range()} == {
         ("addr33", k) for k in targets}
@@ -374,14 +378,17 @@ def test_chord_kernels_match_plain(dev, m, k, endo):
 
 def _probe_case(mode, arg, dev):
     """(filter, bits, first words) of a K5 case; dense random bits for
-    the bloom and pow2 modes, so that both outcomes occur."""
+    the bloom and pow2 modes, so that both outcomes occur.  A compare list
+    longer than ECLOOP_CMP_MAX's default (4,096 first words) is above
+    the kernels' shared-memory cap of 2,048."""
     g = torch.Generator(device=dev).manual_seed(arg)
     if mode == "compare":
         targets = np.random.default_rng(arg).integers(
             0, 1 << 32, size=(arg, 5), dtype=np.uint64).astype(np.uint32)
         filt = filters.filter_from_hashes(targets)
-        return filt, torch.zeros(1, dtype=torch.int32, device=dev), \
-            filt.first_words(dev)
+        fw = torch.from_numpy(np.unique(filt.targets[:, 0]).astype(
+            np.int64)).to(dev)
+        return filt, torch.zeros(1, dtype=torch.int32, device=dev), fw
     if mode == "pow2":
         filt = filters.Filter(mode="list", targets=None, blf=None,
                               device_bits=None, pow2_log2=arg)
@@ -400,16 +407,20 @@ def _probe_case(mode, arg, dev):
     return filt, bits, None
 
 
-@pytest.mark.parametrize("n", [131072, 2097152, 32768])
-@pytest.mark.parametrize("mode,arg", [
+PROBE_CASES = [
     ("compare", 0), ("compare", 1), ("compare", 160), ("compare", 2048),
-    ("exact", 1), ("exact", 3), ("exact", 20), ("exact", 21),
-    ("pow2", 32), ("pow2", 33)])
+    ("compare", 4096), ("exact", 1), ("exact", 3), ("exact", 20),
+    ("exact", 21), ("pow2", 32), ("pow2", 33)]
+
+
+@pytest.mark.parametrize("n", [131072, 2097152, 32768])
+@pytest.mark.parametrize("mode,arg", PROBE_CASES)
 def test_probe_pack_kernel_matches_plain(dev, mode, arg, n):
     """K5 at the searches' key counts (an `add` step, the wide call, a
-    `mul` job) in every mode: compare lists of 0-2,048 first words (hits
-    planted), bloom at 1, 3 and 20 probes and at 20 over a 3 x 2^32 + 64
-    bit filter ("exact", 21), pow2 on each side of log2_bits 32."""
+    `mul` job) in every mode: compare lists of 0-4,096 first words (hits
+    planted; 4,096 is above the shared-memory cap), bloom at 1, 3 and 20
+    probes and at 20 over a 3 x 2^32 + 64 bit filter ("exact", 21), pow2
+    on each side of log2_bits 32."""
     filt, bits, fw = _probe_case(mode, arg, dev)
     h = torch.randint(0, 1 << 32, (5, n), dtype=torch.int64, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(n))
@@ -423,6 +434,79 @@ def test_probe_pack_kernel_matches_plain(dev, mode, arg, n):
     hits = int(np.unpackbits(got.cpu().numpy().astype("<u4").view(
         np.uint8)).sum())
     assert (hits == 0) == (mode == "compare" and arg == 0)
+
+
+# the planes of the searches' steps: addr33; -a cu; -endo; -endo -a cu
+# (search/add._variants's order, (x row, y row, is33))
+PLANE_SETS = {
+    1: [(0, 0, True)],
+    2: [(0, 0, True), (0, 0, False)],
+    6: [(*add.EMAP[e], True) for e in range(6)],
+    12: [(*add.EMAP[e], f) for e in range(6) for f in (True, False)],
+}
+
+
+@pytest.fixture(scope="module")
+def plain_hashes():
+    """(xs, ys, {(x row, y row, is33): plain hash rows}) per key count:
+    three x and two y rows of random limbs, hashed once by the plain form
+    for every test of the fused entry."""
+    cache = {}
+
+    def get(n, dev):
+        if n not in cache:
+            xs = [_limbs(n, 30 + i, dev) for i in range(3)]
+            ys = [_limbs(n, 40 + i, dev) for i in range(2)]
+            rows = {(i, j, f): (hash160.addr33_hash_rows if f
+                                else hash160.addr65_hash_rows)(xs[i], ys[j])
+                    for i, j, f in PLANE_SETS[12]}
+            cache[n] = (xs, ys, rows)
+        return cache[n]
+    return get
+
+
+@pytest.mark.parametrize("n", [131072, 32768])
+@pytest.mark.parametrize("count", sorted(PLANE_SETS))
+@pytest.mark.parametrize("mode,arg", PROBE_CASES)
+def test_hash160_probe_kernel_matches_plain(dev, plain_hashes, mode, arg,
+                                            count, n):
+    """The fused hash and probe (K1 with K5 as its epilogue) equals the
+    plain hash rows probed and packed by the plain form, plane by plane,
+    in every probe case, for the plane sets of addr33, -a cu, -endo and
+    -endo -a cu; one launch per address form."""
+    filt, bits, fw = _probe_case(mode, arg, dev)
+    xs, ys, rows = plain_hashes(n, dev)
+    planes = PLANE_SETS[count]
+    if fw is not None and fw.numel():
+        # plant hits: a quarter of the list (at least one word) becomes
+        # first words of plane 0's keys
+        k = max(1, fw.numel() // 4)
+        fw = torch.unique(torch.cat([fw[k:], rows[planes[0]][0, :k]]))
+    out = torch.full((count, n // 32), -1, dtype=torch.int64, device=dev)
+    before = kernels.LAUNCHES["hash160_probe"]
+    kernels.hash160_probe(filt, xs, ys, planes, bits, fw, out)
+    assert kernels.LAUNCHES["hash160_probe"] == before + len(
+        {f for *_, f in planes})
+    want = torch.stack([filters.probe_pack_plain(filt, rows[p], bits, fw)
+                        for p in planes])
+    assert torch.equal(out, want)
+
+
+def test_hash160_probe_at_the_wide_width(dev):
+    """At the wide `add` call's 2,097,152 keys, -endo, compare mode: the
+    fused entry equals K1's plain rows probed by the plain form."""
+    n = 2097152
+    xs = [_limbs(n, 50 + i, dev) for i in range(3)]
+    ys = [_limbs(n, 60 + i, dev) for i in range(2)]
+    planes = PLANE_SETS[6]
+    rows = [hash160.addr33_hash_rows(xs[i], ys[j]) for i, j, _ in planes]
+    filt, bits, _ = _probe_case("compare", 160, dev)
+    fw = torch.unique(torch.cat([rows[3][0, :96], rows[5][0, -64:]]))
+    out = torch.empty((6, n // 32), dtype=torch.int64, device=dev)
+    kernels.hash160_probe(filt, xs, ys, planes, bits, fw, out)
+    want = torch.stack([filters.probe_pack_plain(filt, h, bits, fw)
+                        for h in rows])
+    assert torch.equal(out, want) and int(want.count_nonzero()) >= 4
 
 
 def test_failed_capture_raises(dev):

@@ -141,7 +141,7 @@ def test_cpu_calls_do_not_count_as_launches():
                             True)
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 0,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0}
+                                "probe_pack": 0, "hash160_probe": 0}
 
 
 def test_golden_copy_matches_the_jax_package():

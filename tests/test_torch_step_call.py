@@ -210,12 +210,12 @@ def test_graph_counts_recorded_launches_per_replay():
     assert rec == [("hash160", 7), ("hash160", 7), ("inv_mod_batch", 9)]
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 0,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0}
+                                "probe_pack": 0, "hash160_probe": 0}
     for _ in range(3):
         kernels.count_launches(rec)
     assert kernels.LAUNCHES == {"hash160": 6, "inv_mod_batch": 3,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0}
+                                "probe_pack": 0, "hash160_probe": 0}
     assert 7 in kernels.WIDTHS["hash160"] and 9 in kernels.WIDTHS["inv_mod_batch"]
     kernels.reset_launches()
     seen = []
