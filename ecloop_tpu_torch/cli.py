@@ -11,7 +11,10 @@ over every visible GPU, or `-t n` of them (with `-device cpu`, over n
 CPU shards), and over several processes when ECLOOP_COORDINATOR,
 ECLOOP_NUM_PROCS and ECLOOP_PROC_ID say so (`parallel.multihost`).
 `blf-gen` and `blf-check` run on the host.  ECLOOP_PROFILE=<dir> writes
-a torch.profiler trace of the whole command there (`whole_command_trace`).
+a torch.profiler trace of the whole command there (`whole_command_trace`),
+where the engines' own spans appear as `ecloop.<engine>.<stage>` events,
+and prints a `trace:` line of their counters, span times and device gap
+share to stderr.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import time
 
 import torch
 
-from . import __version__, golden
+from . import __version__, golden, trace
 from .parallel import multihost
 
 GROUP_INV_SIZE = 2048             # reference GROUP_INV_SIZE: lowest range start
@@ -645,7 +648,10 @@ def whole_command_trace(cmd: str | None, args: Args):
     the write took go to stderr.  A device command on CUDA records the
     host and the card; -device cpu, blf-gen, blf-check and the usage
     text record the host only and leave the card alone.  Shapes, stacks
-    and memory are not recorded."""
+    and memory are not recorded.  The program's tracer (`trace`) is on
+    meanwhile: its spans are the trace's `ecloop.` events, and a
+    `trace:` line after the `profile:` line gives its counters, each
+    span's total and self ms and the device gap share per engine."""
     out_dir = os.environ.get("ECLOOP_PROFILE")
     if not out_dir:
         yield
@@ -657,11 +663,14 @@ def whole_command_trace(cmd: str | None, args: Args):
             == "cuda" and torch.cuda.is_available()):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    trace.reset()
+    trace.enable(True)
     prof.start()
     try:
         yield
     finally:
         prof.stop()
+        trace.enable(False)
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{socket.gethostname()}.p"
                             f"{multihost.process_index()}.{os.getpid()}"
@@ -670,6 +679,7 @@ def whole_command_trace(cmd: str | None, args: Args):
         prof.export_chrome_trace(path)
         print(f"profile: {path}, {os.path.getsize(path):,} bytes, written "
               f"in {time.perf_counter() - t0:.3f} s", file=sys.stderr)
+        print(trace.summary(), file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:

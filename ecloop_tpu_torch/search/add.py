@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import bloom, fel, golden, graphs, kernels
+from .. import bloom, fel, golden, graphs, kernels, trace
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
@@ -192,6 +192,7 @@ class StepCall:
         for slot in self.masks:
             self.graph()
             slot.copy_(self._out)
+        trace.count("add.enqueues", 2 * len(self.masks))
 
 
 build_step_fn = StepCall          # the JAX package's name for it
@@ -253,6 +254,9 @@ class AddSearch:
         self.variants = _variants(cfg)
         self.shards = [AddShard(d, devices[d], cfg, local, filt)
                        for d in mesh.owned_shards(owned, n)]
+        # candidate lanes a call hashes over this process's shards
+        self.lanes_per_call = (max(1, cfg.steps_per_call) * len(self.variants)
+                               * local.keys_per_step * len(self.shards))
         self.k_checked = 0
         self.k_found = 0
 
@@ -268,26 +272,29 @@ class AddSearch:
         cfg = self.cfg
         rs = cfg.range_s if range_s is None else range_s
         re_ = cfg.range_e if range_e is None else range_e
-        job = common.derive_job_size(rs, re_)
-        claims = list(common.plan_claims(rs, re_, job, cfg.stride))
-        if not claims:
-            return []
-        span_keys = 0
-        windows = []
-        for c in claims:
-            off = (c.start - rs) // cfg.stride
-            windows.append((off, off + c.coverage))
-            span_keys = max(span_keys, off + c.coverage)
-            self.k_checked += c.job * (6 if cfg.endo else 1)
-        if start_offset >= span_keys:
-            return []
+        with trace.span("add.span_setup"):
+            job = common.derive_job_size(rs, re_)
+            claims = list(common.plan_claims(rs, re_, job, cfg.stride))
+            if not claims:
+                return []
+            span_keys = 0
+            windows = []
+            for c in claims:
+                off = (c.start - rs) // cfg.stride
+                windows.append((off, off + c.coverage))
+                span_keys = max(span_keys, off + c.coverage)
+                self.k_checked += c.job * (6 if cfg.endo else 1)
+            if start_offset >= span_keys:
+                return []
+            base = (rs + start_offset * cfg.stride) % N
+            n_keys = span_keys - start_offset
+            calls = self._seed_span(base, n_keys)
 
         def valid(off):
             return any(a <= off + start_offset < b for a, b in windows)
 
-        return self.run_span(
-            (rs + start_offset * cfg.stride) % N, span_keys - start_offset,
-            hit_offsets_valid=valid, on_found=on_found,
+        return self._run_calls(
+            base, n_keys, calls, hit_offsets_valid=valid, on_found=on_found,
             on_step=(lambda done: on_step(start_offset + done))
             if on_step else None)
 
@@ -310,6 +317,14 @@ class AddSearch:
         next call overwrites them.  A call's masks are drained only
         after the next call is queued, so the host's hit handling
         overlaps the devices' work."""
+        with trace.span("add.span_setup"):
+            calls = self._seed_span(base, n_keys)
+        return self._run_calls(base, n_keys, calls, hit_offsets_valid,
+                               on_found, on_step)
+
+    def _seed_span(self, base: int, n_keys: int) -> int:
+        """Check the span from `base` and seed each shard's first
+        centers; returns the number of calls that cover n_keys."""
         cfg = self.cfg
         mk = cfg.keys_per_step
         t_ = max(1, cfg.steps_per_call)
@@ -317,14 +332,27 @@ class AddSearch:
         check_no_degenerate(cfg, base, calls * t_ * mk)
         for shard, (cx, cy) in zip(self.shards, self.shard_centers(base)):
             shard.call.seed(cx, cy)
+        return calls
+
+    def _run_calls(self, base, n_keys, calls, hit_offsets_valid, on_found,
+                   on_step) -> list[Found]:
+        t_ = max(1, self.cfg.steps_per_call)
         found = []
         pending = None
         for c in range(calls):
             fetches = []
-            for shard in self.shards:
-                shard.call()
-                fetches.append((shard.offset,
-                                common.fetch_async(shard.call.masks)))
+            with trace.span("add.launch"):
+                for shard in self.shards:
+                    mark = trace.device_mark("add", shard.device)
+                    mark.start()
+                    shard.call()
+                    fetches.append((shard.offset,
+                                    common.fetch_async(shard.call.masks), mark))
+                    mark.end()
+            trace.count("add.calls")
+            trace.count("add.steps", t_)
+            trace.count("add.lanes", self.lanes_per_call)
+            trace.count("add.enqueues", len(self.shards))
             if pending is not None:
                 found.extend(self._drain(*pending, base, n_keys,
                                          hit_offsets_valid, on_found, on_step))
@@ -338,22 +366,28 @@ class AddSearch:
                on_step) -> list[Found]:
         """Handle the hits of one call's steps t0, t0+1, ...: `fetches`
         holds, per shard of a step's keys, the shard's first key offset
-        within the step and the `fetch_async` handle of its (steps, V,
-        words) masks.  Steps go in order, shards in the order given;
-        on_step follows each step."""
-        planes = [(off, common.fetched(f)) for off, f in fetches]
-        mk = self.cfg.keys_per_step
-        out = []
-        for tt in range(planes[0][1].shape[0]):
-            t = t0 + tt
-            for off, masks_np in planes:
-                if masks_np[tt].any():
-                    out.extend(self._handle_hits(
-                        base, t * mk + off, n_keys, masks_np[tt],
-                        hit_offsets_valid, on_found))
-            if on_step:
-                on_step(min((t + 1) * mk, n_keys))
-        return out
+        within the step, the `fetch_async` handle of its (steps, V,
+        words) masks and the call's device mark.  Steps go in order,
+        shards in the order given; on_step follows each step."""
+        with trace.span("add.drain"):
+            with trace.span("add.wait"):
+                planes = [(off, common.fetched(f)) for off, f, _ in fetches]
+                for _, _, mark in fetches:
+                    mark.done()
+            mk = self.cfg.keys_per_step
+            out = []
+            for tt in range(planes[0][1].shape[0]):
+                t = t0 + tt
+                for off, masks_np in planes:
+                    if masks_np[tt].any():
+                        with trace.span("add.hits"):
+                            out.extend(self._handle_hits(
+                                base, t * mk + off, n_keys, masks_np[tt],
+                                hit_offsets_valid, on_found))
+                if on_step:
+                    with trace.span("add.on_step"):
+                        on_step(min((t + 1) * mk, n_keys))
+            return out
 
     def _handle_hits(self, base, step_off, n_keys, masks_np,
                      hit_offsets_valid, on_found) -> list[Found]:
@@ -361,7 +395,9 @@ class AddSearch:
         is the key at offset step_off + j."""
         out = []
         for v, (e, is33) in enumerate(self.variants):
-            for j in np.nonzero(unpack_mask(masks_np[v]))[0]:
+            bits = np.nonzero(unpack_mask(masks_np[v]))[0]
+            trace.count("add.candidates", len(bits))
+            for j in bits:
                 off = step_off + int(j)
                 if off >= n_keys:
                     continue                      # step overshoot
@@ -372,6 +408,7 @@ class AddSearch:
                 h = common.derive_h160(priv, is33)
                 if not self.filt.confirm(bytes.fromhex(h)):
                     continue                      # device prefilter false positive
+                trace.count("add.confirmed")
                 common.verify_found(priv, label, h)
                 f = Found(label=label, h160=h, priv=priv)
                 out.append(f)

@@ -25,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from .. import bloom, ecc, fel, golden, graphs, kernels
+from .. import bloom, ecc, fel, golden, graphs, kernels, trace
 from ..filters import Filter
 from ..parallel import mesh
 from . import common
@@ -276,15 +276,17 @@ class MulCall:
             self.masks.copy_(self.step(self.dig, self.txy, self.bits))
         self.graph = graphs.Graph(body, device)
 
-    def upload(self, dig: np.ndarray) -> None:
+    def upload(self, dig: np.ndarray, mark=trace.OFF) -> None:
         """Copy (d, batch) digits into `dig` through pinned memory, queued
         on the current stream of `dig`'s device (whichever device is
         current), where the replay that reads them runs too: the host
-        does not wait."""
-        src = torch.from_numpy(dig)
-        if self.dig.is_cuda:
-            src = src.pin_memory()
-        self.dig.copy_(src, non_blocking=True)
+        does not wait.  The job's device mark starts at the copy."""
+        with trace.span("mul.upload"):
+            src = torch.from_numpy(dig)
+            if self.dig.is_cuda:
+                src = src.pin_memory()
+            mark.start()
+            self.dig.copy_(src, non_blocking=True)
 
     def __call__(self) -> None:
         self.graph()
@@ -302,12 +304,15 @@ class MulShard:
         self.device = torch.device(device)
         self.call = MulCall(cfg, filt, w, batch, self.device)
 
-    def launch(self, dig: np.ndarray):
+    def launch(self, dig: np.ndarray, mark=trace.OFF):
         """Queue the job on the block's (d, batch) digits; returns the
-        `common.fetch_async` handle of its (V, batch/32) masks."""
-        self.call.upload(dig)
-        self.call()
-        return common.fetch_async(self.call.masks)
+        `common.fetch_async` handle of its (V, batch/32) masks.  `mark`
+        (`trace.device_mark`) starts at the job's first enqueue."""
+        self.call.upload(dig, mark)
+        with trace.span("mul.launch"):
+            self.call()
+            trace.count("mul.enqueues", 3)        # upload, replay, fetch
+            return common.fetch_async(self.call.masks)
 
 
 class MulSearch:
@@ -345,14 +350,25 @@ class MulSearch:
 
     def _launch(self, dig: np.ndarray) -> list:
         """Queue one job from its (d, batch) digits, each shard's block on
-        its device; returns the shards' mask handles."""
+        its device; returns the shards' mask handles, each with the job's
+        device mark on that shard."""
         b = self.batch // len(self.shards)
-        return [s.launch(np.ascontiguousarray(dig[:, i * b:(i + 1) * b]))
-                for i, s in enumerate(self.shards)]
+        out = []
+        for i, s in enumerate(self.shards):
+            mark = trace.device_mark("mul", s.device)
+            block = np.ascontiguousarray(dig[:, i * b:(i + 1) * b])
+            out.append((s.launch(block, mark), mark))
+            mark.end()
+        trace.count("mul.jobs")
+        trace.count("mul.lanes", self.batch * len(self.labels))
+        return out
 
     def _masks(self, handles: list) -> np.ndarray:
         """The job's (V, batch/32) host masks, the shards' in key order."""
-        return np.concatenate([common.fetched(h) for h in handles], axis=1)
+        masks = np.concatenate([common.fetched(h) for h, _ in handles], axis=1)
+        for _, mark in handles:
+            mark.done()
+        return masks
 
     def run_keys(self, keys: list[int], on_found=None,
                  drain: bool = True) -> list[Found]:
@@ -363,11 +379,12 @@ class MulSearch:
     def run_lines(self, lines, on_found=None,
                   drain: bool = True) -> list[Found]:
         """Search key lines: hex, or with -raw any text (SHA-256)."""
-        lines = [ln.strip() for ln in lines]
-        lines = [ln for ln in lines if ln]
-        words = None if self.raw else parse_hex_words(lines)
-        if words is None:
-            words = words_mod_n(keys_to_words(parse_keys(lines, self.raw)))
+        with trace.span("mul.parse"):
+            lines = [ln.strip() for ln in lines]
+            lines = [ln for ln in lines if ln]
+            words = None if self.raw else parse_hex_words(lines)
+            if words is None:
+                words = words_mod_n(keys_to_words(parse_keys(lines, self.raw)))
         return self.run_words(words, on_found=on_found, drain=drain)
 
     def run_words(self, words: np.ndarray, on_found=None,
@@ -382,8 +399,9 @@ class MulSearch:
             job = words[off:off + self.batch]
             # padding lanes have digit 0 in every window: they stay at
             # infinity and are dropped by _handle_hits
-            dig = np.zeros((d, self.batch), dtype=np.int32)
-            dig[:, :len(job)] = window_digits_words(job, self.w).T
+            with trace.span("mul.digits"):
+                dig = np.zeros((d, self.batch), dtype=np.int32)
+                dig[:, :len(job)] = window_digits_words(job, self.w).T
             self._pending.append((job, self._launch(dig), on_found))
             while len(self._pending) > self.depth:
                 found.extend(self._drain_one())
@@ -400,14 +418,20 @@ class MulSearch:
 
     def _drain_one(self) -> list[Found]:
         job, handle, on_found = self._pending.popleft()
-        found = self._handle_hits(job, self._masks(handle), on_found)
+        with trace.span("mul.drain"):
+            with trace.span("mul.wait"):
+                masks = self._masks(handle)
+            with trace.span("mul.hits"):
+                found = self._handle_hits(job, masks, on_found)
         self.k_checked += len(job)
         return found
 
     def _handle_hits(self, job, masks_np, on_found) -> list[Found]:
         out = []
         for v, (label, is33) in enumerate(self.labels):
-            for j in np.nonzero(unpack_mask(masks_np[v]))[0]:
+            bits = np.nonzero(unpack_mask(masks_np[v]))[0]
+            trace.count("mul.candidates", len(bits))
+            for j in bits:
                 if j >= len(job):
                     continue                      # padding lane
                 priv = word_to_int(job[int(j)])
@@ -416,6 +440,7 @@ class MulSearch:
                 h = common.derive_h160(priv, is33)
                 if not self.filt.confirm(bytes.fromhex(h)):
                     continue                      # device prefilter false positive
+                trace.count("mul.confirmed")
                 f = Found(label=label, h160=h, priv=priv)
                 out.append(f)
                 self.k_found += 1

@@ -107,9 +107,10 @@ class _HostShard:
     keys: set = set()
 
     def __init__(self, device, cfg, filt, w, batch):
+        self.device = device
         self.w = w
 
-    def launch(self, dig):
+    def launch(self, dig, mark):
         hit = [sum(int(v) << (self.w * i) for i, v in enumerate(col))
                in self.keys for col in dig.T]
         return common.fetch_async(pack_mask(torch.tensor(hit))[None])
