@@ -43,7 +43,13 @@ filled as blf-gen fills it at its adaptive probe count; pow2 on each
 side of log2_bits 32), the fused entry at 1, 2, 6 and 12 planes, with a
 (0, 0) center and zero inverses, and times each against its plain form
 and its bound, and the fused entry against K1 + K5 + the stack of the
-planes that it replaces.
+planes that it replaces.  Phase 8 holds K8 (csrc/mul_keys.cu, a `mul`
+job's lines or key words to its window digits; the searches launch it
+before each `mul` replay, outside the graph) bit for bit against its
+plain form (the host's hashlib and digit cut) on 32,768 seeded pool
+lines, a short job over them, the SHA-256 block-edge lengths and key
+words at 0, 1, n - 1, n, n + 1 and 2^256 - 1, and times both entries
+against their plain forms and their bounds.
 Phase p runs `add -r 8000:fffff` and `mul` on the 1080-key vector
 through the CLI in processes of their own, untraced and with
 ECLOOP_PROFILE (a torch.profiler trace of the whole command): stdout,
@@ -107,10 +113,12 @@ CLI_TIMEOUT_S = 600      # phase p: each traced or untraced CLI process's limit
 KERNEL_SYMBOLS = {"hash160": "hash160_kernel", "inv_mod_batch": "inv_batch_kernel",
                   "mixed_add": "mixed_add_kernel", "add_chords": "chord_",
                   "probe_pack": "probe_pack_kernel",
-                  "hash160_probe": "hash160_probe_kernel"}
-# the kernels each search path launches, and the two that the searches
-# run fused (hash160_probe) and never alone; the bench and its family
-# launch K1-K5 alone
+                  "hash160_probe": "hash160_probe_kernel",
+                  "mul_keys": "mul_keys_kernel"}
+# the kernels each search path launches inside its graph replays (`mul`
+# launches K8 before each replay, outside it), and the two that the
+# searches run fused (hash160_probe) and never alone; the bench and its
+# family launch K1-K5 alone
 ADD_KERNELS = ("inv_mod_batch", "add_chords", "hash160_probe")
 MUL_KERNELS = ("inv_mod_batch", "mixed_add", "hash160_probe")
 UNFUSED = ("hash160", "probe_pack")
@@ -356,7 +364,8 @@ def ptxas_report(path: str) -> dict:
              "hash160": ("_addr65", "_addr33"),
              "mixed_add": ("_incomplete", "_complete"),
              "inv_batch": ("", ""), "chord_dx": ("", ""),
-             "chord_points": ("", ""), "probe_pack": ("", "")}
+             "chord_points": ("", ""), "probe_pack": ("", ""),
+             "mul_keys": ("_words", "_lines")}
     out, name = {}, None
     with open(path) as f:
         for line in f:
@@ -375,6 +384,31 @@ def ptxas_report(path: str) -> dict:
                 out[name] = f"{regs}; {out.get(name, '')}"
                 name = None
     return out
+
+
+def pool_lines(rng, n: int) -> list[str]:
+    """n seeded lines of 6-16 printable ASCII characters, the benchmark's
+    `-raw` pool, with multi-byte UTF-8 in every 97th."""
+    import numpy as np
+
+    lens = rng.integers(6, 17, n)
+    text = rng.integers(0x21, 0x7F, int(lens.sum()), dtype=np.uint8
+                        ).tobytes().decode("ascii")
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    lines = [text[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    for i in range(0, n, 97):
+        lines[i] = "\u043f\u0430\u0440\u043e\u043b\u044c-" + lines[i] + "\U0001F511"
+    return lines
+
+
+def edge_lines(rng) -> list[str]:
+    """Lines at K8's SHA-256 block edges: 1, 55, 56, 63, 64, 119, 120 and
+    1,000 bytes, multi-byte UTF-8 across the 55/56 edge, and a line that
+    holds "\n" (packed line by line)."""
+    lines = ["".join(map(chr, rng.integers(33, 127, size=n)))
+             for n in (1, 55, 56, 63, 64, 119, 120, 1000)]
+    return lines + ["\u00e9" * 28, "a" * 54 + "\u00e9", "\U0001F511" * 14,
+                    "two\nlines"]
 
 
 def window_lanes(rng, n: int, dev):
@@ -432,7 +466,7 @@ def mul_run(cli, kernels, lines):
     launches = dict(kernels.LAUNCHES)
     if run.device.type != "cuda":
         raise AssertionError(f"mul ran on {run.device}")
-    if min(launches[k] for k in MUL_KERNELS) < 1:
+    if min(launches[k] for k in MUL_KERNELS + ("mul_keys",)) < 1:
         raise AssertionError(f"a kernel of the mul path never ran: {launches}")
     fused_only(launches, "mul")
     return run, launches
@@ -464,14 +498,16 @@ def mul_breakdown(lines, dev) -> dict:
 
 
 @contextlib.contextmanager
-def no_direct_launches(kernels, what: str):
-    """Fail if a kernel wrapper launches inside the block: on the card
-    the engines' kernels run only from graph replays."""
+def no_direct_launches(kernels, what: str, allowed=()):
+    """Fail if a kernel wrapper launches inside the block, but for the
+    entry points in `allowed`: on the card the engines' kernels run only
+    from graph replays, and `mul`'s K8 (ecl_mul_keys) before each."""
     direct = []
     launch = kernels._launch
 
     def counted(fn, *args):
-        direct.append(fn)
+        if fn not in allowed:
+            direct.append(fn)
         return launch(fn, *args)
     kernels._launch = counted
     try:
@@ -1379,10 +1415,12 @@ def main() -> int:
     mcall = mul.build_mul_step(common.SearchConfig(addr33=True, addr65=True),
                                mfilt, mul.W, MUL_N, dev)
     mpeak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
-    mcall.upload(mdig)
+    mcall.upload(mul.WordsJob(mwords))
     with no_direct_launches(kernels, "mul call"):
         mcall()
     mdig_t = torch.from_numpy(mdig).to(dev)
+    if not torch.equal(mcall.dig, mdig_t):
+        raise AssertionError("mul call: K8's digits differ from the host's")
     want = mcall.step(mdig_t, mcall.txy, mcall.bits)
     torch.cuda.synchronize()
     if not torch.equal(mcall.masks, want):
@@ -1403,7 +1441,8 @@ def main() -> int:
         "eager": call_figures(lambda: mcall.step(mdig_t, mcall.txy,
                                                  mcall.bits), 1, MUL_N, 20)}
     phase("n", f"mul job ({MUL_N:,} keys, the 1080-key vector among them, "
-               f"btc-bw-hash's 1,080 targets): graph == eager job "
+               f"btc-bw-hash's 1,080 targets, uploaded as key words: K8's "
+               f"digits == the host's): graph == eager job "
                f"(masks bit-identical, {mhits} hit bits); built in "
                f"{mcall.graph.capture_s:.3f} s, peak {mpeak:.0f} MiB, "
                f"{len(mcall.graph.launches)} kernel launches per replay")
@@ -1695,6 +1734,80 @@ def main() -> int:
     call_ms["hash160_probe"] = None
     bounds["hash160_probe"] = (main_f["bound_ms"], main_f["bound_by"])
 
+    # --- 8: K8 against its plain form at the job's width, timed -----------------------
+    d14 = mul.n_windows(mul.W)
+    k8_pool = pool_lines(rng, MUL_N)
+    k8_jobs = (("pool", mul.pack_lines(k8_pool)),
+               ("a short job after the pool", mul.pack_lines(k8_pool[:1000])),
+               ("block edges", mul.pack_lines(edge_lines(rng))))
+    got = torch.full((d14, MUL_N), 7, dtype=torch.int32, device=dev)
+    want = torch.full((d14, MUL_N), 7, dtype=torch.int32)
+
+    def k8_on(job, dig):
+        """A LineJob's bytes and offsets as K8's inputs on dig's device."""
+        return (torch.from_numpy(job.buf.copy()).to(dig.device),
+                torch.from_numpy(job.offs).to(dig.device))
+    for name, job in k8_jobs:
+        for dig in (got, want):
+            kernels.mul_keys_lines(*k8_on(job, dig), dig, mul.W)
+        if not torch.equal(got.cpu(), want) or want[:, len(job):].any():
+            raise AssertionError(f"K8 lines: {name}: the digits differ from "
+                                 f"the plain form's, or a lane past the job "
+                                 f"is not 0")
+    k8_edges = [0, 1, golden.N - 1, golden.N, golden.N + 1, (1 << 256) - 1]
+    k8_keys = k8_edges + [int.from_bytes(rng.bytes(32), "big")
+                          for _ in range(MUL_N - len(k8_edges))]
+    for ks in (k8_keys, k8_edges):
+        k8_words = {d.type: torch.from_numpy(mul.keys_to_words(ks).view(
+            np.int64).copy()).to(d) for d in (dev, torch.device("cpu"))}
+        kernels.mul_keys_words(k8_words["cuda"], got, mul.W)
+        kernels.mul_keys_words(k8_words["cpu"], want, mul.W)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"K8 words differ from the plain form's "
+                                 f"at {len(ks)} keys")
+    if not np.array_equal(want[:, :6].numpy(), mul.window_digits(
+            [k % golden.N for k in k8_edges], mul.W).T.astype(np.int32)):
+        raise AssertionError("K8 words: 0, 1, n - 1, n, n + 1, 2^256 - 1")
+    errs["mul_keys"] = 0
+    k8_ns = {MUL_N}
+    pool_job = k8_jobs[0][1]
+    lines_dev, lines_cpu = k8_on(pool_job, got), k8_on(pool_job, want)
+    words_dev = torch.from_numpy(mul.keys_to_words(k8_keys).view(
+        np.int64).copy())
+    words_cpu, words_dev = words_dev, words_dev.to(dev)
+    for name, kern, plain, kname, acc in (
+            ("mul_keys_lines",
+             lambda: kernels.mul_keys_lines(*lines_dev, got, mul.W),
+             lambda: kernels.mul_keys_lines(*lines_cpu, want, mul.W),
+             "mul_keys_kernel<true>",
+             sol.mul_keys_account(MUL_N, d14, len(pool_job),
+                                  len(pool_job.buf), pool_job.sha_blocks())),
+            ("mul_keys_words",
+             lambda: kernels.mul_keys_words(words_dev, got, mul.W),
+             lambda: kernels.mul_keys_words(words_cpu, want, mul.W),
+             "mul_keys_kernel<false>",
+             sol.mul_keys_account(MUL_N, d14, MUL_N))):
+        call_ms[name], plain_ms = paired_ms(kern, plain)
+        t[name] = (device_ms(kern, kname), plain_ms)
+        bounds[name] = sol.bound(*acc, int_ops)
+        k_ms, (b_ms, b_by) = t[name][0], bounds[name]
+        phase("8", f"{name} at n={MUL_N}: kernel {k_ms:.4f} ms on the device "
+                   f"(torch.profiler, mean of 20 calls), {call_ms[name]:.4f} ms "
+                   f"per wrapper call, plain form (the host's) {plain_ms:.4f} ms "
+                   f"(CUDA events, windows >= {TIME_WINDOW_S} s), bound "
+                   f"{b_ms:.4f} ms ({b_by}), share {b_ms / k_ms:.1%}; card {card}")
+        if b_ms > k_ms:
+            raise AssertionError(f"{name} runs in {k_ms:.4f} ms, under its "
+                                 f"least time {b_ms:.4f} ms: the bound's "
+                                 f"model is wrong")
+    phase("8", f"K8 == plain on {MUL_N:,} pool lines ({len(pool_job.buf):,} "
+               f"bytes, {pool_job.sha_blocks():,} SHA-256 blocks), a 1,000-line "
+               f"job over them (lanes past it 0) and the block-edge lines; "
+               f"words entry on {MUL_N:,} keys with 0, 1, n - 1, n, n + 1 and "
+               f"2^256 - 1, then those alone; ptxas "
+               + "; ".join(f"{k}: {v}" for k, v in ptxas.items()
+                           if k.startswith("mul_keys")))
+
     # --- h: bench at the card's default B ---------------------------------------------
     searched = {k: set(v) for k, v in kernels.WIDTHS.items()}
     kernels.reset_launches()
@@ -1846,15 +1959,15 @@ def main() -> int:
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with no_direct_launches(kernels, "mul_sharded"):
+    with no_direct_launches(kernels, "mul_sharded", ("ecl_mul_keys",)):
         found = meng.run_lines(bw_lines)
     torch.cuda.synchronize()
     split_runs["mul_sharded"] = {"devices": 2, "seconds": time.monotonic() - t0,
                                  "k_checked": meng.k_checked,
                                  "launches": dict(kernels.LAUNCHES)}
     check_vector(found, vector)
-    if meng.k_checked != 1080 or min(kernels.LAUNCHES[k]
-                                     for k in MUL_KERNELS) < 2:
+    if meng.k_checked != 1080 or min(kernels.LAUNCHES[k] for k in
+                                     MUL_KERNELS + ("mul_keys",)) < 2:
         raise AssertionError(f"sharded mul: k_checked {meng.k_checked}, "
                              f"launches {kernels.LAUNCHES}")
     fused_only(kernels.LAUNCHES, "mul_sharded")
@@ -1957,6 +2070,10 @@ def main() -> int:
         launches_add_traced = run["launches"]
         run = traced_path("mul -a cu", ["mul", "-f", BW_HASH, "-a", "cu"],
                           MUL_KERNELS, BW_PRIV)
+        k8_tr = traces["mul -a cu"]["trace"]["kernels"]["mul_keys"]
+        if k8_tr["events"] < 1 or k8_tr["in_replays"]:
+            raise AssertionError(f"mul trace: K8 events {k8_tr}, expected "
+                                 f"some, none inside a graph replay")
         lines = [ln for ln in run["stdout"].splitlines() if ln.startswith("addr")]
         if (len(lines) != 1080 or sum(ln.startswith("addr33") for ln in lines)
                 != 540 or {int(ln.rsplit(" ", 1)[1], 16) for ln in lines}
@@ -1993,7 +2110,7 @@ def main() -> int:
     checked = {"hash160": set(hash_ns), "inv_mod_batch": set(inv_ns),
                "mixed_add": {MUL_N, HASH_N, VERIFY_N},
                "add_chords": set(chord_ns), "probe_pack": set(hash_ns),
-               "hash160_probe": set(hash_ns)}
+               "hash160_probe": set(hash_ns), "mul_keys": set(k8_ns)}
     for name in searched:
         searched[name] |= kernels.WIDTHS[name]
         for r in procs_out:
@@ -2001,7 +2118,7 @@ def main() -> int:
         if not searched[name] <= checked[name]:
             raise AssertionError(f"the searches ran {name} at widths "
                                  f"{sorted(searched[name] - checked[name])} "
-                                 f"that phases 1, 2, a and 7 did not check")
+                                 f"that phases 1, 2, a, 7 and 8 did not check")
     phase("m", "every width the searches launched a kernel at (every phase "
                "from 3 through 7, and k, l and p) was held against the plain "
                "version: " + "; ".join(
@@ -2093,6 +2210,15 @@ def main() -> int:
               "as its epilogue)", cases=fused_cases,
               ptxas={k: v for k, v in ptxas.items()
                      if k.startswith("hash160_probe")}),
+        entry("mul_keys", "mul_keys_lines", "ecloop_tpu_torch/csrc/mul_keys.cu",
+              "ecloop_tpu/search/mul.py:241 and :224 (the host's parse_keys "
+              "and window_digits of every key of a job)",
+              ms_words=t["mul_keys_words"][0],
+              call_ms_words=call_ms["mul_keys_words"],
+              plain_ms_words=t["mul_keys_words"][1],
+              bound_ms_words=bounds["mul_keys_words"][0],
+              ptxas={k: v for k, v in ptxas.items()
+                     if k.startswith("mul_keys")}),
     ], "card": card, "int_ops_per_s": int_ops, "sm_clock_mhz": sm_mhz,
         "sms": sms, "add_keys_per_s": rate, "mul_keys_per_s": mul_rate,
         "mul_batch": MUL_N, "gtable_build_s": gtable_s, "mul_split": split,

@@ -22,7 +22,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("hash160.cu", "inv_batch.cu", "mixed_add.cu", "add_chords.cu",
-           "probe_pack.cu", "hash160_probe.cu")
+           "probe_pack.cu", "hash160_probe.cu", "mul_keys.cu")
 HEADERS = ("field.cuh", "hash160.cuh", "probe.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ecloop_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,4 +131,7 @@ def load(path: str) -> ctypes.CDLL:
         ctypes.POINTER(ull), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ctypes.c_int, ll, *probe, vp, vp]
     cdll.ecl_hash160_probe.restype = ctypes.c_int
+    cdll.ecl_mul_keys.argtypes = [ctypes.c_int, vp, vp, vp, ll, ll,
+                                  ctypes.c_int, vp, vp]
+    cdll.ecl_mul_keys.restype = ctypes.c_int
     return cdll

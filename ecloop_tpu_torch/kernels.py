@@ -7,12 +7,17 @@
   K4  chord_dx, chord_points               -> csrc/add_chords.cu
   K5  probe_pack                           -> csrc/probe_pack.cu
   K1 + K5 hash160_probe                    -> csrc/hash160_probe.cu
+  K8  mul_keys_lines / mul_keys_words      -> csrc/mul_keys.cu
 
 K1-K3 port the JAX package's Pallas kernels; K4 and K5 port the stages
 of its `add` step that XLA compiles around them (the chords with the
 endomorphism rows, and the prefilter probe with the mask packing).  The
 searches run K1 with K5 as its epilogue (`hash160_probe`: the hash rows
 stay in registers); K1 and K5 alone serve the bench and the checks.
+K8 takes over the `mul` job's host work (the port of the JAX package's
+host `parse_keys` and `window_digits`): a job's lines or key words in,
+its window digits out; its plain form is those host functions
+(`keys`).
 
 A tensor on the CPU goes to the kernel's plain torch version; a CUDA
 tensor launches the kernel on its device's current stream, or raises.
@@ -33,11 +38,12 @@ import ctypes
 
 import torch
 
-from . import _build, bloom, ecc, fel, filters, hash160
+from . import _build, bloom, ecc, fel, filters, hash160, keys
 
 NLIMBS = 16
 LAUNCHES = {"hash160": 0, "inv_mod_batch": 0, "mixed_add": 0,
-            "add_chords": 0, "probe_pack": 0, "hash160_probe": 0}
+            "add_chords": 0, "probe_pack": 0, "hash160_probe": 0,
+            "mul_keys": 0}
 WIDTHS = {k: set() for k in LAUNCHES}
 _recorder: list | None = None
 
@@ -402,3 +408,88 @@ def hash160_probe(filt: filters.Filter, xs, ys, planes, bits: torch.Tensor,
                     int(is33), n, *args, out.data_ptr())
             _count("hash160_probe", n)
     return out
+
+
+def _check_digits(dig: torch.Tensor, w: int, n: int) -> None:
+    """dig: the (d, batch) int32 window digits of w-bit windows, n <= batch
+    keys."""
+    if not 1 <= w <= 31:
+        raise ValueError(f"w: {w}, expected 1 to 31")
+    d = 255 // w + 1
+    if (not isinstance(dig, torch.Tensor) or dig.dtype != torch.int32
+            or dig.dim() != 2 or dig.shape[0] != d):
+        raise ValueError(f"dig: expected a ({d}, batch) int32 tensor")
+    if dig.device.type == "cuda" and not dig.is_contiguous():
+        raise ValueError("dig: kernel output must be contiguous")
+    if not 0 <= n <= dig.shape[1]:
+        raise ValueError(f"{n} keys for {dig.shape[1]} lanes")
+
+
+def _plain_digits(words, dig: torch.Tensor, w: int) -> None:
+    """K8's plain form past the keys: the host's mod n and digit cut of
+    (n, 4) u64 words into dig's first n lanes, zeros after them."""
+    dig.zero_()
+    if len(words):
+        cut = keys.window_digits_words(keys.words_mod_n(words), w)
+        dig[:, :len(words)] = torch.from_numpy(cut.T.astype("int32"))
+
+
+def mul_keys_lines(buf: torch.Tensor, offs: torch.Tensor, dig: torch.Tensor,
+                   w: int) -> torch.Tensor:
+    """K8, `-raw` lines: buf (uint8) holds n lines, each followed by one
+    separator byte, and offs (n + 1,) int64 their offsets (line e is
+    buf[offs[e]:offs[e + 1] - 1]); dig (d, batch) int32 receives the
+    w-bit window digits of SHA-256(line) mod n in lanes 0 .. n - 1 and
+    zeros in the rest.  Returns dig.  On the CPU: the host functions
+    (`keys.parse_keys` on the decoded lines, keys_to_words, words_mod_n,
+    window_digits_words)."""
+    if not isinstance(buf, torch.Tensor) or buf.dtype != torch.uint8 \
+            or buf.dim() != 1:
+        raise TypeError("buf: expected a 1-D uint8 tensor")
+    if not isinstance(offs, torch.Tensor) or offs.dtype != torch.int64 \
+            or offs.dim() != 1 or offs.numel() < 1:
+        raise TypeError("offs: expected a 1-D int64 tensor of n + 1 offsets")
+    n = offs.numel() - 1
+    _check_digits(dig, w, n)
+    for name, t in (("buf", buf), ("offs", offs)):
+        if t.device != dig.device:
+            raise ValueError(f"{name} is on {t.device}, dig on {dig.device}")
+    if dig.device.type == "cpu":
+        data, o = buf.numpy().tobytes(), offs.tolist()
+        lines = [data[o[e]:o[e + 1] - 1].decode() for e in range(n)]
+        _plain_digits(keys.keys_to_words(keys.parse_keys(lines, True)), dig, w)
+        return dig
+    for name, t in (("buf", buf), ("offs", offs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel input must be contiguous")
+    if dig.shape[1]:
+        _launch("ecl_mul_keys", dig.device, 1, buf.data_ptr(),
+                offs.data_ptr(), None, n, dig.shape[1], w, dig.data_ptr())
+        _count("mul_keys", dig.shape[1])
+    return dig
+
+
+def mul_keys_words(words: torch.Tensor, dig: torch.Tensor,
+                   w: int) -> torch.Tensor:
+    """K8, key words: words (n, 4) int64 holds each key's u64
+    little-endian words (any value below 2^256); dig (d, batch) int32
+    receives the w-bit window digits of the key mod n in lanes
+    0 .. n - 1 and zeros in the rest.  Returns dig.  On the CPU: the
+    host's words_mod_n and window_digits_words."""
+    if not isinstance(words, torch.Tensor) or words.dtype != torch.int64 \
+            or words.dim() != 2 or words.shape[1] != 4:
+        raise TypeError("words: expected an (n, 4) int64 tensor")
+    n = words.shape[0]
+    _check_digits(dig, w, n)
+    if words.device != dig.device:
+        raise ValueError(f"words is on {words.device}, dig on {dig.device}")
+    if dig.device.type == "cpu":
+        _plain_digits(words.numpy().view("<u8"), dig, w)
+        return dig
+    if not words.is_contiguous():
+        raise ValueError("words: kernel input must be contiguous")
+    if dig.shape[1]:
+        _launch("ecl_mul_keys", dig.device, 0, None, None, words.data_ptr(),
+                n, dig.shape[1], w, dig.data_ptr())
+        _count("mul_keys", dig.shape[1])
+    return dig

@@ -4,11 +4,12 @@ lists) through a windowed table of multiples of G.
 The port of `ecloop_tpu.search.mul`.  With w-bit windows a key has
 d = 255 // w + 1 digits; row i of the table holds j * 2^(w*i) * G for
 j = 1 .. 2^w - 1, so k*G is the sum of at most d table points and no
-doublings.  Per job of B keys the host cuts the digits, the device adds
-one gathered table point per window into a projective accumulator (K3),
-reduces to affine with one batched inversion (K2), hashes (K1) and
-probes the filter; only packed hit masks come back, and the host
-confirms every hit with exact filter semantics.
+doublings.  Per job of B keys the host sends the job's lines (`-raw`)
+or key words, K8 derives the keys and cuts their digits on the device,
+which then adds one gathered table point per window into a projective
+accumulator (K3), reduces to affine with one batched inversion (K2),
+hashes (K1) and probes the filter; only packed hit masks come back, and
+the host confirms every hit with exact filter semantics.
 
 Table layout: flat index (2^w - 1) * i + j - 1 holds j * 2^(w*i) * G,
 as one (32, N) int64 tensor, x limbs over y limbs (the counterpart of
@@ -19,7 +20,6 @@ from __future__ import annotations
 
 import collections
 import functools
-import hashlib
 import os
 
 import numpy as np
@@ -27,6 +27,8 @@ import torch
 
 from .. import bloom, ecc, fel, golden, graphs, kernels, trace
 from ..filters import Filter
+from ..keys import (keys_to_words, parse_keys, window_digits_words,
+                    word_to_int, words_mod_n)
 from ..parallel import mesh
 from . import common
 from .add import unpack_mask
@@ -52,70 +54,8 @@ def _labels(cfg: SearchConfig) -> list[tuple[str, bool]]:
 
 # --- host: keys and window digits (numpy) ----------------------------------------
 
-def keys_to_words(keys: list[int]) -> np.ndarray:
-    """Python ints < 2^256 -> (B, 4) u64 little-endian word rows."""
-    raw = b"".join(k.to_bytes(32, "little") for k in keys)
-    return np.frombuffer(raw, dtype="<u8").reshape(len(keys), 4)
-
-
-def word_to_int(row: np.ndarray) -> int:
-    return int.from_bytes(row.tobytes(), "little")
-
-
-_N_WORDS = np.frombuffer(N.to_bytes(32, "little"), dtype="<u8").copy()
-
-
-def words_mod_n(words: np.ndarray) -> np.ndarray:
-    """(B, 4) u64 key words mod the curve order.  Keys are < 2^256 and
-    n > 2^255, so one conditional subtraction suffices."""
-    ge = np.zeros(len(words), bool)
-    eq = np.ones(len(words), bool)
-    for i in (3, 2, 1, 0):
-        gt = eq & (words[:, i] > _N_WORDS[i])
-        lt = eq & (words[:, i] < _N_WORDS[i])
-        ge |= gt
-        eq &= ~(gt | lt)
-    ge |= eq                      # == n reduces to 0 as well
-    if not ge.any():
-        return words
-    words = words.copy()
-    r = words[ge]
-    borrow = np.zeros(r.shape[0], np.uint64)
-    for i in range(4):
-        ni = _N_WORDS[i]
-        wi = r[:, i].copy()
-        nb = (wi < ni) | ((wi == ni) & (borrow == np.uint64(1)))
-        r[:, i] = wi - ni - borrow
-        borrow = nb.astype(np.uint64)
-    words[ge] = r
-    return words
-
-
-def window_digits_words(words: np.ndarray, w: int) -> np.ndarray:
-    """(B, 4) u64 key words -> (B, d) window digits (uint16 for w <= 16,
-    uint32 above); digit 0 means the window adds nothing."""
-    n = 1 << w
-    d = n_windows(w)
-    out = np.empty((len(words), d), dtype=np.uint16 if w <= 16 else np.uint32)
-    for i in range(d):
-        j, sh = divmod(w * i, 64)
-        lo = words[:, j] >> np.uint64(sh)
-        if sh and j + 1 < 4:
-            lo = lo | (words[:, j + 1] << np.uint64(64 - sh))
-        out[:, i] = (lo & np.uint64(n - 1)).astype(out.dtype)
-    return out
-
-
 def window_digits(keys: list[int], w: int) -> np.ndarray:
     return window_digits_words(keys_to_words(keys), w)
-
-
-def parse_keys(lines: list[str], raw: bool) -> list[int]:
-    """Hex private keys mod n, or with -raw the SHA-256 of each line."""
-    if raw:
-        return [int.from_bytes(hashlib.sha256(ln.encode()).digest(), "big")
-                for ln in lines]
-    return [int(ln, 16) % N for ln in lines]
 
 
 def parse_hex_words(lines: list[str]) -> np.ndarray | None:
@@ -132,6 +72,101 @@ def parse_hex_words(lines: list[str]) -> np.ndarray | None:
         return None
     arr = np.frombuffer(b, np.uint8).reshape(-1, 32)[:, ::-1]
     return words_mod_n(np.ascontiguousarray(arr).view("<u8"))
+
+
+class LineJob:
+    """A job's `-raw` lines packed for K8: `buf` (uint8) holds each line's
+    UTF-8 bytes followed by one separator byte (the last line's is left
+    out), `offs` (n + 1,) int64 their offsets: line e is
+    buf[offs[e]:offs[e + 1] - 1].  The engine's job interface, which
+    `WordsJob` shares: len, a slice of lanes, a lane's key, the SHA-256
+    blocks hashed, the host block to upload and K8 on its device copy."""
+
+    def __init__(self, buf: np.ndarray, offs: np.ndarray):
+        self.buf, self.offs = buf, offs
+
+    def __len__(self) -> int:
+        return len(self.offs) - 1
+
+    def __getitem__(self, s: slice) -> "LineJob":
+        """Lines [s.start, s.stop) as a job of their own (a shard's)."""
+        lo, hi, _ = s.indices(len(self))
+        o = self.offs[lo:max(lo, hi) + 1]
+        return LineJob(self.buf[o[0]:max(o[0], o[-1] - 1)], o - o[0])
+
+    def key(self, e: int) -> int:
+        """Line e's private key: parse_keys' -raw key mod n."""
+        line = self.buf[self.offs[e]:self.offs[e + 1] - 1].tobytes().decode()
+        return parse_keys([line], True)[0] % N
+
+    def sha_blocks(self) -> int:
+        """SHA-256 blocks of the lines: ceil((len + 9) / 64) each."""
+        return int(((np.diff(self.offs) - 1 + 72) // 64).sum())
+
+    def host(self, pin: bool) -> torch.Tensor:
+        """The offsets, then the bytes, in one uint8 block of its own."""
+        head = 8 * len(self.offs)
+        out = torch.empty(head + len(self.buf), dtype=torch.uint8,
+                          pin_memory=pin)
+        flat = out.numpy()
+        flat[:head] = self.offs.view(np.uint8)
+        flat[head:] = self.buf
+        return out
+
+    def derive(self, src: torch.Tensor, dig: torch.Tensor, w: int) -> None:
+        """K8 on `host()`'s copy on dig's device."""
+        head = 8 * len(self.offs)
+        kernels.mul_keys_lines(src[head:], src[:head].view(torch.int64), dig, w)
+
+
+class WordsJob:
+    """A job's keys as (n, 4) u64 little-endian word rows (hex lines,
+    run_keys), with `LineJob`'s interface."""
+
+    def __init__(self, words: np.ndarray):
+        self.words = words
+
+    def __len__(self) -> int:
+        return len(self.words)
+
+    def __getitem__(self, s: slice) -> "WordsJob":
+        return WordsJob(self.words[s])
+
+    def key(self, e: int) -> int:
+        return word_to_int(self.words[e]) % N
+
+    def sha_blocks(self) -> int:
+        return 0
+
+    def host(self, pin: bool) -> torch.Tensor:
+        out = torch.empty((len(self.words), 4), dtype=torch.int64,
+                          pin_memory=pin)
+        out.numpy()[:] = self.words.view(np.int64)
+        return out
+
+    def derive(self, src: torch.Tensor, dig: torch.Tensor, w: int) -> None:
+        kernels.mul_keys_words(src, dig, w)
+
+
+def pack_lines(lines: list[str]) -> LineJob:
+    """Stripped, non-empty lines -> their LineJob, in O(1) Python calls:
+    one join and encode, the offsets from one newline scan.  UTF-8 puts
+    byte 0x0A only where the text has "\n", so each slice is the line's
+    own encoding; a line that holds "\n" itself (from an API caller,
+    never from the CLI) sends the job down a line-by-line pack."""
+    buf = np.frombuffer("\n".join(lines).encode(), np.uint8)
+    nl = np.flatnonzero(buf == 0x0A)
+    if len(nl) == max(len(lines) - 1, 0):
+        offs = np.empty(len(lines) + 1, np.int64)
+        offs[-1] = len(buf) + 1
+        offs[0] = 0
+        offs[1:-1] = nl + 1
+        return LineJob(buf, offs)
+    trace.count("mul.pack_fallback")
+    enc = [ln.encode() for ln in lines]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(b) + 1 for b in enc], out=offs[1:])
+    return LineJob(np.frombuffer(b"\n".join(enc), np.uint8), offs)
 
 
 # --- the table -----------------------------------------------------------------
@@ -264,6 +299,7 @@ class MulCall:
     def __init__(self, cfg: SearchConfig, filt: Filter, w: int, batch: int,
                  device, table: torch.Tensor | None = None):
         device = torch.device(device)
+        self.w = w
         self.step = make_mul_step(cfg, filt, w, batch, device)
         self.txy = build_gtable(w, device) if table is None else table
         self.bits = bloom.bits_tensor(filt.device_bits, device)
@@ -276,17 +312,23 @@ class MulCall:
             self.masks.copy_(self.step(self.dig, self.txy, self.bits))
         self.graph = graphs.Graph(body, device)
 
-    def upload(self, dig: np.ndarray, mark=trace.OFF) -> None:
-        """Copy (d, batch) digits into `dig` through pinned memory, queued
-        on the current stream of `dig`'s device (whichever device is
-        current), where the replay that reads them runs too: the host
-        does not wait.  The job's device mark starts at the copy."""
+    def upload(self, job, mark=trace.OFF) -> None:
+        """Put the digits of a job of at most batch keys into `dig`: the
+        job (a LineJob or a WordsJob) goes to the device in one copy
+        through pinned memory of its own, then K8 cuts the digits there,
+        zeros past the job's keys.  Both are queued on the current stream
+        of `dig`'s device, where the replay that reads them runs too: the
+        host does not wait.  The job's device mark starts at the copy.
+        On the CPU, K8's plain form cuts them."""
+        dev = self.dig.device
         with trace.span("mul.upload"):
-            src = torch.from_numpy(dig)
-            if self.dig.is_cuda:
-                src = src.pin_memory()
+            host = job.host(pin=dev.type == "cuda")
             mark.start()
-            self.dig.copy_(src, non_blocking=True)
+            src = host.to(dev, non_blocking=True)
+            with trace.span("mul.digits") if dev.type == "cpu" else trace.OFF:
+                job.derive(src, self.dig, self.w)
+        if dev.type == "cuda":
+            trace.count("mul.device_keys", len(job))
 
     def __call__(self) -> None:
         self.graph()
@@ -304,14 +346,15 @@ class MulShard:
         self.device = torch.device(device)
         self.call = MulCall(cfg, filt, w, batch, self.device)
 
-    def launch(self, dig: np.ndarray, mark=trace.OFF):
-        """Queue the job on the block's (d, batch) digits; returns the
-        `common.fetch_async` handle of its (V, batch/32) masks.  `mark`
-        (`trace.device_mark`) starts at the job's first enqueue."""
-        self.call.upload(dig, mark)
+    def launch(self, job, mark=trace.OFF):
+        """Queue the job on the block's keys (a LineJob or a WordsJob of
+        n <= batch keys); returns the `common.fetch_async` handle of its
+        (V, batch/32) masks.  `mark` (`trace.device_mark`) starts at the
+        job's first enqueue."""
+        self.call.upload(job, mark)
         with trace.span("mul.launch"):
             self.call()
-            trace.count("mul.enqueues", 3)        # upload, replay, fetch
+            trace.count("mul.enqueues", 4)    # copy, K8, replay, fetch
             return common.fetch_async(self.call.masks)
 
 
@@ -322,8 +365,8 @@ class MulSearch:
     Keys go to the devices in jobs of `batch`: key j of a job on shard
     j // (batch/n), so the found set is the one-device engine's.  Up to
     ECLOOP_MUL_INFLIGHT jobs (INFLIGHT unless set; read here, at build)
-    stay queued, one depth for all shards, while the host cuts the next
-    job's digits, and each job's masks come back through pinned memory
+    stay queued, one depth for all shards, while the host packs the next
+    job, and each job's masks come back through pinned memory
     (common.fetch_async).  Any depth is safe: every upload and every
     fetch takes a pinned block of its own, which the caching host
     allocator hands out again only once the copy queued on it is done."""
@@ -348,19 +391,22 @@ class MulSearch:
         self.depth = int(os.environ.get("ECLOOP_MUL_INFLIGHT", INFLIGHT))
         self._pending = collections.deque()
 
-    def _launch(self, dig: np.ndarray) -> list:
-        """Queue one job from its (d, batch) digits, each shard's block on
-        its device; returns the shards' mask handles, each with the job's
-        device mark on that shard."""
+    def _launch(self, job) -> list:
+        """Queue one job (a LineJob or a WordsJob, n <= batch keys), each
+        shard's block of keys on its device; returns the shards' mask
+        handles, each with the job's device mark on that shard."""
         b = self.batch // len(self.shards)
         out = []
         for i, s in enumerate(self.shards):
             mark = trace.device_mark("mul", s.device)
-            block = np.ascontiguousarray(dig[:, i * b:(i + 1) * b])
-            out.append((s.launch(block, mark), mark))
+            out.append((s.launch(job[i * b:(i + 1) * b], mark), mark))
             mark.end()
         trace.count("mul.jobs")
         trace.count("mul.lanes", self.batch * len(self.labels))
+        trace.count("mul.keys", len(job))
+        blocks = job.sha_blocks()
+        if blocks:
+            trace.count("mul.sha_blocks", blocks)
         return out
 
     def _masks(self, handles: list) -> np.ndarray:
@@ -378,14 +424,25 @@ class MulSearch:
 
     def run_lines(self, lines, on_found=None,
                   drain: bool = True) -> list[Found]:
-        """Search key lines: hex, or with -raw any text (SHA-256)."""
+        """Search key lines: hex, or with -raw any text (SHA-256 of its
+        UTF-8 bytes, on the device).  Every line is stripped and the empty
+        ones dropped."""
         with trace.span("mul.parse"):
-            lines = [ln.strip() for ln in lines]
-            lines = [ln for ln in lines if ln]
-            words = None if self.raw else parse_hex_words(lines)
-            if words is None:
-                words = words_mod_n(keys_to_words(parse_keys(lines, self.raw)))
-        return self.run_words(words, on_found=on_found, drain=drain)
+            lines = [ln for ln in map(str.strip, lines) if ln]
+            if not self.raw:
+                words = parse_hex_words(lines)
+                if words is None:
+                    words = words_mod_n(keys_to_words(parse_keys(lines,
+                                                                 False)))
+        if not self.raw:
+            return self.run_words(words, on_found=on_found, drain=drain)
+
+        def jobs():
+            for off in range(0, len(lines), self.batch):
+                with trace.span("mul.parse"):
+                    job = pack_lines(lines[off:off + self.batch])
+                yield job
+        return self._run(jobs(), on_found, drain)
 
     def run_words(self, words: np.ndarray, on_found=None,
                   drain: bool = True) -> list[Found]:
@@ -393,16 +450,17 @@ class MulSearch:
         reduced mod n.  With drain=False up to `depth` jobs
         (ECLOOP_MUL_INFLIGHT) stay queued across calls; the caller ends
         with flush()."""
+        return self._run((WordsJob(words[off:off + self.batch])
+                          for off in range(0, len(words), self.batch)),
+                         on_found, drain)
+
+    def _run(self, jobs, on_found, drain: bool) -> list[Found]:
+        """Queue the jobs in turn, draining the oldest past `depth`.  A
+        short job's padding lanes get digit 0 in every window (K8): they
+        stay at infinity and _handle_hits drops them."""
         found = []
-        d = n_windows(self.w)
-        for off in range(0, len(words), self.batch):
-            job = words[off:off + self.batch]
-            # padding lanes have digit 0 in every window: they stay at
-            # infinity and are dropped by _handle_hits
-            with trace.span("mul.digits"):
-                dig = np.zeros((d, self.batch), dtype=np.int32)
-                dig[:, :len(job)] = window_digits_words(job, self.w).T
-            self._pending.append((job, self._launch(dig), on_found))
+        for job in jobs:
+            self._pending.append((job, self._launch(job), on_found))
             while len(self._pending) > self.depth:
                 found.extend(self._drain_one())
         if drain:
@@ -434,7 +492,7 @@ class MulSearch:
             for j in bits:
                 if j >= len(job):
                     continue                      # padding lane
-                priv = word_to_int(job[int(j)])
+                priv = job.key(int(j))
                 if priv == 0:
                     continue                      # 0*G has no pubkey
                 h = common.derive_h160(priv, is33)

@@ -24,8 +24,9 @@ accounts (`inv_account`, `mixed_add_account`), K4 by running its plain
 forms on data-free tensors of the step's shapes (`chord_account`), K5
 from the probe terms below and the probes its data reads
 (`probe_pack_account`, `probe_reads`), K1 with K5 as its epilogue by
-both (`hash_probe_account`); `chip_smoke.py` holds their device times
-against these.
+both (`hash_probe_account`), K8 by its SHA-256 blocks counted as K1's
+compression is and the bytes it moves (`mul_keys_account`);
+`chip_smoke.py` holds their device times against these.
 """
 
 from __future__ import annotations
@@ -326,6 +327,29 @@ def hash_account(n: int, is33: bool, counts: dict) -> tuple[float, float]:
     """K1 (hash160 of n keys): (bytes, operations); counts is
     `hash_counts(is33)`."""
     return n * HASH_LIMBS[is33] * LIMB_BYTES, n * hash_ops_per_key(counts)
+
+
+def mul_keys_account(lanes: int, d: int, keys: int, line_bytes: int = 0,
+                     sha_blocks: int = 0) -> tuple[float, float]:
+    """K8 over `lanes` lanes of d int32 digits, `keys` of them keys:
+    (bytes, operations).  The lines entry (sha_blocks > 0) reads
+    line_bytes of lines and n + 1 int64 offsets and runs sha_blocks
+    compressions, each counted as K1's (`sha_block_ops`); the words
+    entry reads 32 bytes a key.  The message build, the reduction and
+    the digit cut are left out of the operations."""
+    read = line_bytes + 8 * (keys + 1) if sha_blocks else 32 * keys
+    return read + 4 * d * lanes, sha_blocks * sha_block_ops()
+
+
+@functools.lru_cache(maxsize=1)
+def sha_block_ops() -> float:
+    """Operations of one SHA-256 compression of a message block that
+    depends on the key, from the initial state, at the 64-per-clock
+    rate (`hash_ops_per_key`'s rule)."""
+    c = HashOpCount()
+    c.sha256([(v, False) for v in hash160.SHA_IV],
+             [(i, True) for i in range(16)])
+    return hash_ops_per_key({"alu": c.alu, "either": c.add})
 
 
 # --- K1's function, counted ------------------------------------------------------

@@ -243,7 +243,8 @@ def test_graph_call_equals_eager_steps(dev):
 
 def test_mul_graph_job_equals_eager(dev):
     """`build_mul_step`'s replay equals the eager job, twice over, with
-    the digits uploaded between replays."""
+    the key words uploaded between replays: K8's digits are the host's,
+    the shorter job's padding lanes zeroed."""
     filt = filters.load_filter(os.path.join(os.path.dirname(__file__), "..",
                                             "data", "btc-bw-hash"))
     with open(os.path.join(os.path.dirname(__file__), "..", "data",
@@ -255,8 +256,9 @@ def test_mul_graph_job_equals_eager(dev):
     for ks in (keys, keys[::-1][:batch // 2]):
         dig = np.zeros((mul.n_windows(w), batch), dtype=np.int32)
         dig[:, :len(ks)] = mul.window_digits(ks, w).T
-        call.upload(dig)
+        call.upload(mul.WordsJob(mul.keys_to_words(ks)))
         call()
+        assert torch.equal(call.dig.cpu(), torch.from_numpy(dig))
         want = call.step(torch.from_numpy(dig).to(dev), call.txy, call.bits)
         assert torch.equal(call.masks, want)
         assert int(np.unpackbits(want.cpu().numpy().astype("<u4").view(
@@ -265,8 +267,9 @@ def test_mul_graph_job_equals_eager(dev):
 
 def test_engines_launch_only_through_graph_replays(dev, monkeypatch):
     """Once built, `AddSearch` and `MulSearch` over [dev] x 2 launch no
-    kernel through the wrappers: each call is one replay per shard, and
-    the launches counted are the replays' recorded ones."""
+    kernel through the wrappers but K8, once per `mul` shard before its
+    replay (a job's byte count varies): each call is one replay per
+    shard, and the launches counted are the replays' recorded ones."""
     targets = [0x70005, 0x702A0, 0x707F0]
     filt = filters.filter_from_hashes(np.stack([np.frombuffer(
         golden.addr33(golden.point_mul(k)), dtype=">u4").astype(np.uint32)
@@ -276,21 +279,127 @@ def test_engines_launch_only_through_graph_replays(dev, monkeypatch):
     eng = add.AddSearch(cfg, filt, [dev, dev])
     meng = mul.MulSearch(mul.SearchConfig(), filt, [dev, dev], w=8, batch=512)
 
-    def refuse(*args):
-        raise AssertionError("a kernel launched outside a graph replay")
+    launch = kernels._launch
+
+    def refuse(fn, *args):
+        if fn != "ecl_mul_keys":        # K8 runs before the replay, by design
+            raise AssertionError("a kernel launched outside a graph replay")
+        return launch(fn, *args)
     monkeypatch.setattr(kernels, "_launch", refuse)
     kernels.reset_launches()
     assert {f.priv for f in eng.run_range()} == set(targets)
     # 0x800 keys at 8 x 256 per step: one step, so one call per shard
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 2 * 2,
                                 "mixed_add": 0, "add_chords": 2 * 2 * 2,
-                                "probe_pack": 0, "hash160_probe": 2 * 2}
+                                "probe_pack": 0, "hash160_probe": 2 * 2,
+                                "mul_keys": 0}
     kernels.reset_launches()
     assert {f.priv for f in meng.run_keys(targets + [5, 6])} == set(targets)
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 2,
                                 "mixed_add": 2 * mul.n_windows(8),
                                 "add_chords": 0, "probe_pack": 0,
-                                "hash160_probe": 2}
+                                "hash160_probe": 2, "mul_keys": 2}
+
+
+def _pool_lines(n, seed):
+    """n seeded lines of 6-16 printable ASCII characters, as the
+    benchmark's `-raw` pool, with some multi-byte UTF-8 among them."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(6, 17, n)
+    chars = rng.integers(0x21, 0x7F, int(lens.sum()), dtype=np.uint8)
+    text = chars.tobytes().decode("ascii")
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    lines = [text[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    for i in range(0, n, 97):
+        lines[i] = "пароль-" + lines[i] + "-\u00e9\U0001F511"
+    return lines
+
+
+def _edge_lines():
+    """Lines of 1, 55, 56, 63, 64, 119, 120 and 1,000 bytes (the SHA-256
+    block edges), multi-byte UTF-8 across the 55/56 edge, and a line
+    holding "\n" (packed line by line)."""
+    rng = np.random.default_rng(21)
+    lines = ["".join(map(chr, rng.integers(33, 127, size=n)))
+             for n in (1, 55, 56, 63, 64, 119, 120, 1000)]
+    return lines + ["\u00e9" * 28, "a" * 54 + "\u00e9", "\U0001F511" * 14,
+                    "two\nlines"]
+
+
+def _k8_lines(job, dig, w):
+    """K8's lines entry on job's bytes on dig's device."""
+    return kernels.mul_keys_lines(
+        torch.from_numpy(job.buf.copy()).to(dig.device),
+        torch.from_numpy(job.offs).to(dig.device), dig, w)
+
+
+@pytest.mark.parametrize("case", ["pool", "edges", "short_after_full"])
+@pytest.mark.parametrize("w", [14, 8])
+def test_mul_keys_lines_kernel_matches_plain(dev, case, w):
+    """K8's lines entry against its CPU form (the host's hashlib and digit
+    cut): 32,768 seeded pool lines, the block-edge lengths, and a short
+    job written over a full one on the same digits (no stale lane)."""
+    batch = 32768
+    full = mul.pack_lines(_pool_lines(batch, 5))
+    jobs = {"pool": [full], "edges": [mul.pack_lines(_edge_lines())],
+            "short_after_full": [full, mul.pack_lines(_pool_lines(1000, 6))]}
+    d = mul.n_windows(w)
+    got = torch.full((d, batch), 7, dtype=torch.int32, device=dev)
+    want = torch.full((d, batch), 7, dtype=torch.int32)
+    before = kernels.LAUNCHES["mul_keys"]
+    for job in jobs[case]:
+        _k8_lines(job, got, w)
+        _k8_lines(job, want, w)
+    assert kernels.LAUNCHES["mul_keys"] == before + len(jobs[case])
+    assert torch.equal(got.cpu(), want)
+    n = len(jobs[case][-1])
+    assert not want[:, n:].any()
+    assert [jobs[case][-1].key(e) for e in range(4)] == [
+        sum(int(v) << (w * i) for i, v in enumerate(want[:, e].tolist()))
+        for e in range(4)]
+
+
+def test_mul_keys_words_kernel_matches_plain(dev):
+    """K8's words entry against its CPU form on 0, 1, n - 1, n, n + 1 and
+    2^256 - 1 among random words, then a shorter job over them."""
+    rng = np.random.default_rng(8)
+    edges = [0, 1, golden.N - 1, golden.N, golden.N + 1, (1 << 256) - 1]
+    keys = edges + [int.from_bytes(rng.bytes(32), "big") for _ in range(4090)]
+    for w in (14, 8):
+        d = mul.n_windows(w)
+        got = torch.full((d, 8192), 7, dtype=torch.int32, device=dev)
+        want = torch.full((d, 8192), 7, dtype=torch.int32)
+        for ks in (keys, keys[:100]):
+            words = torch.from_numpy(mul.keys_to_words(ks).view(np.int64).copy())
+            kernels.mul_keys_words(words.to(dev), got, w)
+            kernels.mul_keys_words(words, want, w)
+            assert torch.equal(got.cpu(), want)
+        cut = mul.window_digits([k % golden.N for k in edges], w).T
+        assert np.array_equal(want[:, :6].numpy(), cut.astype(np.int32))
+
+
+def test_mul_search_raw_mode_and_long_lines(dev):
+    """test_torch_mul's case on the card, where K8 hashes the -raw lines:
+    the lines' keys found, then a short -raw job after a full one (its
+    padding lanes zeroed); a hex line longer than 64 digits is reduced
+    mod n on the host, as int(line, 16)."""
+    def h160s(keys):
+        return np.stack([np.frombuffer(golden.addr33(golden.point_mul(k)),
+                                       dtype=">u4").astype(np.uint32)
+                         for k in keys])
+    lines = ["hello", "bitcoin is worth it", "x"]
+    keys = [k % golden.N for k in mul.parse_keys(lines, raw=True)]
+    eng = mul.MulSearch(SearchConfig(), filters.filter_from_hashes(h160s(keys)),
+                        dev, w=8, batch=32, raw=True)
+    assert sorted(f.priv for f in eng.run_lines(lines)) == sorted(keys)
+    pool = _pool_lines(40, 9)
+    assert sorted(f.priv for f in eng.run_lines(pool + lines)) == sorted(keys)
+    assert eng.k_checked == 3 + 43
+    assert not eng.shards[0].call.dig[:, 43 - 32:].any()
+    long_line = f"{golden.N + 0xC936:x}"
+    eng = mul.MulSearch(SearchConfig(), filters.filter_from_hashes(
+        h160s([0xC936])), dev, w=8, batch=32)
+    assert [f.priv for f in eng.run_lines([long_line, "c936"])] == [0xC936] * 2
 
 
 def _sharded_add_parity(devices):

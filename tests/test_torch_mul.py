@@ -19,7 +19,7 @@ from ecloop_tpu import filters as jfilters
 from ecloop_tpu import golden
 from ecloop_tpu.search import mul as jmul
 from ecloop_tpu.search.common import SearchConfig as JSearchConfig
-from ecloop_tpu_torch import bloom, cli, fel, filters, kernels
+from ecloop_tpu_torch import bloom, cli, fel, filters, kernels, trace
 from ecloop_tpu_torch.search import mul
 from ecloop_tpu_torch.search.common import SearchConfig, derive_h160
 
@@ -184,9 +184,10 @@ def test_mul_step_matches_jax(mode, jax_table, tmp_path):
     assert bits[:2].all() and mul.unpack_mask(masks.numpy()[1])[2]
 
 
-def _engine(filt, addr33=True, addr65=False, raw=False):
+def _engine(filt, addr33=True, addr65=False, raw=False, devices="cpu",
+            batch=BATCH):
     return mul.MulSearch(SearchConfig(addr33=addr33, addr65=addr65), filt,
-                         "cpu", w=W, batch=BATCH, raw=raw)
+                         devices, w=W, batch=batch, raw=raw)
 
 
 def test_mul_search_finds_keys_both_addr_types():
@@ -249,3 +250,125 @@ def test_cli_mul_on_cpu_finds_the_vector_head(monkeypatch, capsys):
     out = capsys.readouterr()
     assert sum(ln.startswith("addr") for ln in out.out.splitlines()) == 64
     assert out.err.rstrip().endswith("64 / 64")
+
+
+# K8's lengths at the SHA-256 block edges: one block holds up to 55 bytes
+EDGE_LENGTHS = (1, 55, 56, 63, 64, 119, 120, 1000)
+# multi-byte UTF-8, some of it across the 55/56-byte edge
+UTF8 = ["passwört", "日本語のパスワード", "\U0001F511" * 14, "é" * 28,
+        "a" * 54 + "é", "ß"]
+
+
+def _edge_lines(seed=11):
+    rng = np.random.default_rng(seed)
+    return ["".join(map(chr, rng.integers(33, 127, size=n)))
+            for n in EDGE_LENGTHS]
+
+
+def _raw_keys(lines):
+    """The JAX package's -raw keys, reduced mod n."""
+    return [k % golden.N for k in jmul.parse_keys(lines, True)]
+
+
+def _jax_digits(keys, lanes):
+    """The JAX package's (d, lanes) digits of keys, zeros past them."""
+    want = np.zeros((mul.n_windows(W), lanes), dtype=np.int32)
+    if keys:
+        want[:, :len(keys)] = jmul.window_digits(keys, W).T
+    return want
+
+
+LINE_CASES = {"edge_lengths": (_edge_lines(), 0), "utf8": (UTF8, 0),
+              "newline_inside": (["ab", "c\nd", "e\n\nf", "g"], 1)}
+
+
+@pytest.mark.parametrize("case", sorted(LINE_CASES))
+def test_k8_lines_cpu_form_matches_jax(case):
+    """pack_lines' slices are the lines' own UTF-8 bytes (line by line
+    where a line holds "\n"), and K8's plain form writes the JAX
+    package's digits of their SHA-256 keys, zeros over stale lanes."""
+    lines, fallback = LINE_CASES[case]
+    trace.reset()
+    job = mul.pack_lines(lines)
+    assert trace.snapshot()["counts"].get("mul.pack_fallback", 0) == fallback
+    assert len(job) == len(lines)
+    assert [job.buf[job.offs[e]:job.offs[e + 1] - 1].tobytes()
+            for e in range(len(job))] == [ln.encode() for ln in lines]
+    keys = _raw_keys(lines)
+    assert [job.key(e) for e in range(len(job))] == keys
+    assert job.sha_blocks() == sum((len(ln.encode()) + 9 + 63) // 64
+                                   for ln in lines)
+    dig = torch.full((mul.n_windows(W), BATCH), 7, dtype=torch.int32)
+    out = kernels.mul_keys_lines(torch.from_numpy(job.buf.copy()),
+                                 torch.from_numpy(job.offs), dig, W)
+    assert out is dig
+    np.testing.assert_array_equal(dig.numpy(), _jax_digits(keys, BATCH))
+
+
+@pytest.mark.parametrize("keys", [[0, 1, golden.N - 1, golden.N, golden.N + 1,
+                                   (1 << 256) - 1], []])
+def test_k8_words_cpu_form_matches_jax(keys):
+    """K8's words entry reduces any key below 2^256 mod n (n itself to
+    0) and cuts the JAX package's digits; no keys zeroes every lane."""
+    words = mul.keys_to_words(keys).view(np.int64) if keys else \
+        np.zeros((0, 4), np.int64)
+    dig = torch.full((mul.n_windows(W), BATCH), 7, dtype=torch.int32)
+    kernels.mul_keys_words(torch.from_numpy(words.copy()), dig, W)
+    np.testing.assert_array_equal(
+        dig.numpy(), _jax_digits([k % golden.N for k in keys], BATCH))
+
+
+def test_k8_wrappers_reject_bad_inputs():
+    dig = torch.zeros((mul.n_windows(W), BATCH), dtype=torch.int32)
+    words = torch.zeros((3, 4), dtype=torch.int64)
+    with pytest.raises(ValueError):                     # d of another w
+        kernels.mul_keys_words(words, dig, W + 1)
+    with pytest.raises(ValueError):                     # more keys than lanes
+        kernels.mul_keys_words(torch.zeros((BATCH + 1, 4), dtype=torch.int64),
+                               dig, W)
+    with pytest.raises(TypeError):
+        kernels.mul_keys_words(words.to(torch.int32), dig, W)
+    with pytest.raises(TypeError):
+        kernels.mul_keys_lines(torch.zeros(4, dtype=torch.int8),
+                               torch.tensor([0, 5]), dig, W)
+    with pytest.raises(ValueError):
+        kernels.mul_keys_lines(torch.zeros(4, dtype=torch.uint8),
+                               torch.tensor([0, 5]), dig.to(torch.int64), W)
+
+
+RAW_CASES = {"one_shard": (1, 0), "two_shards": (2, 0),
+             "newline_inside": (1, 1)}
+RAW_BATCH = 64           # two shards of 32 lanes
+
+
+@pytest.mark.parametrize("case", sorted(RAW_CASES))
+def test_mul_raw_engine_matches_jax(case):
+    """`-raw` through the engine: a full job then a short one on the same
+    engine (its padding lanes zeroed, none of the full job's digits
+    left; over two shards the second gets no key), over one or two
+    shards: the planted lines' keys found, every line counted, and the
+    counters the jobs imply."""
+    shards, fallback = RAW_CASES[case]
+    b = RAW_BATCH
+    lines = _edge_lines() + UTF8 + [f"pool line {i}" for i in range(80)]
+    if fallback:
+        lines[b + 3] = "two\nlines"                 # in the short job
+    keys = _raw_keys(lines)
+    planted = [keys[i] for i in (0, 9, 20, b + 3, len(lines) - 1)]
+    eng = _engine(filters.filter_from_hashes(_h160s(planted)), raw=True,
+                  devices=["cpu"] * shards, batch=b)
+    trace.reset()
+    found = eng.run_lines(lines[:b] + ["", "  "] + lines[b:])
+    assert sorted(f.priv for f in found) == sorted(planted)
+    assert all(f.h160 == derive_h160(f.priv, True) for f in found)
+    assert eng.k_checked == len(lines) and b < len(lines) <= b + b // 2
+    counts = trace.snapshot()["counts"]
+    assert counts["mul.jobs"] == 2
+    assert counts["mul.keys"] == len(lines)
+    assert counts.get("mul.device_keys", 0) == 0          # the CPU form
+    assert counts["mul.sha_blocks"] == sum((len(ln.encode()) + 72) // 64
+                                           for ln in lines)
+    assert counts.get("mul.pack_fallback", 0) == fallback
+    assert counts["mul.enqueues"] == 4 * 2 * shards
+    dig = torch.cat([s.call.dig for s in eng.shards], dim=1)
+    np.testing.assert_array_equal(dig.numpy(), _jax_digits(keys[b:], b))

@@ -139,9 +139,14 @@ def test_cpu_calls_do_not_count_as_launches():
     kernels.inv_mod_batch(_limbs(4))
     kernels.proj_add_affine(*[_limbs(4)] * 5, torch.ones(4, dtype=torch.bool),
                             True)
+    dig = torch.zeros((19, 64), dtype=torch.int32)
+    kernels.mul_keys_words(torch.ones((3, 4), dtype=torch.int64), dig, 14)
+    kernels.mul_keys_lines(torch.tensor(list(b"ab\nc"), dtype=torch.uint8),
+                           torch.tensor([0, 3, 5]), dig, 14)
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 0,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0, "hash160_probe": 0}
+                                "probe_pack": 0, "hash160_probe": 0,
+                                "mul_keys": 0}
 
 
 def test_golden_copy_matches_the_jax_package():

@@ -123,7 +123,8 @@ def jax_table(tmp_path_factory):
 
 def test_build_mul_step_matches_jax(jax_table):
     """One job of both address forms, padded, through the port's call and
-    the JAX `build_mul_step`: the same masks, again after a second upload."""
+    the JAX `build_mul_step`: the same masks, again after an upload of no
+    keys (every lane zeroed) in between."""
     planted = [3, 0x123456789ABCDEF, golden.N - 5]
     keys = planted + [golden.N, 0xDEADBEEF, 1 << 200] + list(range(7, 27))
     jfilt = jfilters.filter_from_hashes(np.stack(
@@ -140,8 +141,9 @@ def test_build_mul_step_matches_jax(jax_table):
     call = mul.build_mul_step(SearchConfig(addr33=True, addr65=True), filt, W,
                               BATCH, "cpu",
                               table=mul.gtable_from_numpy(*jax_table, "cpu"))
-    for d in (dig, np.zeros_like(dig), dig):
-        call.upload(d)
+    words = mul.words_mod_n(mul.keys_to_words(keys))
+    for job in (words, words[:0], words):
+        call.upload(mul.WordsJob(job))
         call()
     np.testing.assert_array_equal(call.masks.numpy(), jmasks)
     assert mul.unpack_mask(jmasks[0])[:2].all()
@@ -210,12 +212,14 @@ def test_graph_counts_recorded_launches_per_replay():
     assert rec == [("hash160", 7), ("hash160", 7), ("inv_mod_batch", 9)]
     assert kernels.LAUNCHES == {"hash160": 0, "inv_mod_batch": 0,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0, "hash160_probe": 0}
+                                "probe_pack": 0, "hash160_probe": 0,
+                                "mul_keys": 0}
     for _ in range(3):
         kernels.count_launches(rec)
     assert kernels.LAUNCHES == {"hash160": 6, "inv_mod_batch": 3,
                                 "mixed_add": 0, "add_chords": 0,
-                                "probe_pack": 0, "hash160_probe": 0}
+                                "probe_pack": 0, "hash160_probe": 0,
+                                "mul_keys": 0}
     assert 7 in kernels.WIDTHS["hash160"] and 9 in kernels.WIDTHS["inv_mod_batch"]
     kernels.reset_launches()
     seen = []

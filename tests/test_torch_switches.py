@@ -101,18 +101,19 @@ def test_one_blf_probe_finds_the_same_keys(puzzles_blf, monkeypatch, capsys):
 
 class _HostShard:
     """Stands in for a device's `mul.MulShard`: a job's hit mask marks
-    the lanes whose key, rebuilt from its window digits, is in `keys`,
-    as the device step marks them where its prefilter is exact."""
+    the lanes whose key, read from the job's key words, is in `keys`,
+    as the device step marks them where its prefilter is exact; padding
+    lanes never hit."""
 
     keys: set = set()
 
     def __init__(self, device, cfg, filt, w, batch):
         self.device = device
-        self.w = w
+        self.batch = batch
 
-    def launch(self, dig, mark):
-        hit = [sum(int(v) << (self.w * i) for i, v in enumerate(col))
-               in self.keys for col in dig.T]
+    def launch(self, job, mark):
+        hit = [job.key(e) in self.keys for e in range(len(job))]
+        hit += [False] * (self.batch - len(job))
         return common.fetch_async(pack_mask(torch.tensor(hit))[None])
 
 

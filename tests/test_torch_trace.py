@@ -162,8 +162,9 @@ def test_device_marks_give_busy_gap_and_wall(monkeypatch):
 
 
 def test_mul_counters_follow_the_found_set():
-    """Targets among the keys and keys that are not: the jobs, lanes and
-    confirmed hits are what the found set and the batch imply."""
+    """Targets among the keys and keys that are not: the jobs, lanes,
+    keys and confirmed hits are what the found set and the batch imply;
+    hex lines hash nothing."""
     keys = open(BW_PRIV).read().split()[:24]
     others = [f"{k:x}" for k in range(1, 9)]          # not among the targets
     filt = filters.load_filter(BW_HASH)
@@ -177,7 +178,11 @@ def test_mul_counters_follow_the_found_set():
     counts, spans = snap["counts"], snap["spans"]
     assert counts["mul.jobs"] == 1
     assert counts["mul.lanes"] == 32 * len(eng.labels)
-    assert counts["mul.enqueues"] == 3
+    # the key words' copy, K8, the replay and the mask fetch
+    assert counts["mul.enqueues"] == 4
+    assert counts["mul.keys"] == 32
+    assert counts.get("mul.device_keys", 0) == 0      # K8's CPU form
+    assert "mul.sha_blocks" not in counts and "mul.pack_fallback" not in counts
     assert counts["mul.candidates"] >= counts["mul.confirmed"] == len(found)
     for name in ("mul.parse", "mul.digits", "mul.upload", "mul.launch",
                  "mul.drain", "mul.wait", "mul.hits"):
