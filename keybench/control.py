@@ -38,9 +38,10 @@ def main() -> int:
         return 2
     fault = faults.FAULTS[args.fault] if args.fault else None
     spec = harness.load_spec(ROOT)
+    c = harness.cell(spec, args.workload, ROOT)
+    devices = [torch.device("cuda", i) for i in range(c.workload["chips"])]
     for seed in (int(s) for s in args.seeds.split(",")):
-        r = harness.run_cell(harness.cell(spec, args.workload, ROOT), seed,
-                             args.seconds, False, torch.device("cuda:0"),
+        r = harness.run_cell(c, seed, args.seconds, False, devices,
                              time.perf_counter(), fault=fault)
         print(json.dumps({"workload": args.workload, "fault": args.fault,
                           "seed": seed, "correct": r["correct"],

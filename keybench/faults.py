@@ -9,6 +9,8 @@ original back on exit.
   frozen_state    a step that leaves its group centers where they were
   half_batch      the second half of every hit mask left out
   altered_answer  each reported key altered where the report is made
+  dropped_card    the last card's hit masks of every call never read (a
+                  cell over several cards)
 """
 
 from __future__ import annotations
@@ -66,5 +68,15 @@ def altered_answer():
         yield
 
 
+def dropped_card():
+    from ecloop_tpu_torch.search.add import AddSearch
+
+    def make(fn):
+        def _drain(self, t0, fetches, *args):
+            return fn(self, t0, fetches[:-1], *args)
+        return _drain
+    return _patched(AddSearch, "_drain", make)
+
+
 FAULTS = {f.__name__: f for f in (skip_confirm, frozen_state, half_batch,
-                                  altered_answer)}
+                                  altered_answer, dropped_card)}

@@ -100,6 +100,12 @@ def _streams(seed: int) -> dict[str, int]:
             for k, s in zip(("draws", "targets", "plants", "lines"), kids)}
 
 
+def traffic_chips(traffic: dict) -> int:
+    """The cards a traffic's command line runs on: its `-t`, else one."""
+    args = traffic["args"]
+    return int(args[args.index("-t") + 1]) if "-t" in args else 1
+
+
 def _argv(cell_: Cell, target_path: str, seed: int) -> list[str]:
     return ["ecloop", cell_.traffic["command"], "-f", target_path,
             *cell_.traffic["args"], "-seed", str(seed)]
@@ -255,14 +261,19 @@ def _int_rate() -> float:
     return acc["int_lane_ops_per_clk"] * sms * int(mhz.split()[0]) * 1e6
 
 
-def step_least_s(cfg, su: Setup, forms: list[str]) -> dict[str, float]:
-    """Least seconds of one `add` step's work, per account term."""
+def step_least_s(cfg, su: Setup, forms: list[str],
+                 shards: int = 1) -> dict[str, float]:
+    """Least seconds of one `add` step's work, per account term.  Over
+    `shards` cards each prices its own block of the step at the local
+    geometry (cfg.centers // shards centers, the key the frozen accounts
+    hold), and the step's work is `shards` times that."""
     acc = accounts.frozen()
     rate, mem = _int_rate(), acc["mem_bps"]
-    out = {k: accounts.least_s(b, o, rate, mem)[0] for k, (b, o) in
-           accounts.chord_inv(acc, cfg.centers, cfg.group_k, cfg.endo).items()}
+    centers = cfg.centers // shards
+    out = {k: shards * accounts.least_s(b, o, rate, mem)[0] for k, (b, o) in
+           accounts.chord_inv(acc, centers, cfg.group_k, cfg.endo).items()}
     planes = _planes(cfg.endo, forms)
-    n = cfg.keys_per_step
+    n = centers * cfg.group_k
     if su.fill is not None:
         reads = n * len(planes) * accounts.probe_reads_per_key(
             su.fill, accounts.device_probes(su.fill))
@@ -271,7 +282,7 @@ def step_least_s(cfg, su: Setup, forms: list[str]) -> dict[str, float]:
     else:
         b, o = accounts.hash_probe(acc, n, planes, "compare",
                                    n_first=su.n_first)
-    out["hash_probe"] = accounts.least_s(b, o, rate, mem)[0]
+    out["hash_probe"] = shards * accounts.least_s(b, o, rate, mem)[0]
     return out
 
 
@@ -308,17 +319,27 @@ def _owner(path: str):
     return importlib.import_module("ecloop_tpu_torch." + path)
 
 
-def run_cell(c: Cell, seed: int, seconds: float, trace: bool, device,
+def run_cell(c: Cell, seed: int, seconds: float, trace: bool, devices,
              t_start: float, fault=None) -> dict:
-    """One run of the cell; returns the result object that run.py prints
-    (its `metrics` the cell's end-to-end ones, or with `trace` its
-    per-layer ones).  `fault` (faults.py) breaks the timed path: the
-    judge's own checks use it, never a benchmark run."""
+    """One run of the cell on `devices` (a device or a list of the cell's
+    `chips`; [cpu] * n stands for n cards on the CPU); returns the result
+    object that run.py prints (its `metrics` the cell's end-to-end ones,
+    or with `trace` its per-layer ones).  `fault` (faults.py) breaks the
+    timed path: the judge's own checks use it, never a benchmark run."""
     import torch
 
     from ecloop_tpu_torch import cli
 
-    device = torch.device(device)
+    devices = [torch.device(d) for d in
+               (devices if isinstance(devices, (list, tuple)) else [devices])]
+    device = devices[0]
+    chips = c.workload["chips"]
+    if traffic_chips(c.traffic) != chips or len(devices) != chips:
+        raise ValueError(f"{c.name}: chips {chips}, the traffic's -t "
+                         f"{traffic_chips(c.traffic)}, {len(devices)} devices")
+    # each card once, where a test stacks shards on one
+    cards = sorted({d for d in devices if d.type == "cuda"},
+                   key=lambda d: d.index)
     cmd = c.traffic["command"]
     su = make_targets(c, seed, device)
     with contextlib.ExitStack() as stack:
@@ -327,17 +348,19 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool, device,
             stack.enter_context(fault())
         with contextlib.redirect_stdout(sys.stderr):
             cfg, filt, _, (offs, size) = cli.search_config(
-                cli.Args(su.argv), cmd, 1)
+                cli.Args(su.argv), cmd, len(devices))
         su.tmp.cleanup()
         run = _RangeRun if cmd == "rnd" else _MulRun
-        r = run(c, cfg, filt, offs, size, su, device, seed)
+        r = run(c, cfg, filt, offs, size, su, devices, seed)
         r.warm_up()
-        if device.type == "cuda":
+        if cards:
             if trace:
-                profiling.warm_up()
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
+                profiling.warm_up(cards)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            torch.cuda.empty_cache()          # every card's cache
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
         setup_s = time.perf_counter() - t_start
         spans = profiling.Spans()
         if trace:
@@ -345,27 +368,29 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool, device,
             for owner, attr, span in SPANS[cmd]:
                 spans.wrap(_owner(owner), attr, span)
         sampler = (profiling.Sampler(time.perf_counter(), seconds,
-                                     c.traffic["profile_window_s"])
+                                     c.traffic["profile_window_s"],
+                                     cards=[d.index for d in cards])
                    if trace else None)
         window = r.window(seconds, sampler)
         if sampler:
             sampler.close()
         spans.restore()
-        peak = 0
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            peak = torch.cuda.max_memory_reserved(device)
-        least = (step_least_s(cfg, su, _forms_of(c.traffic["args"]))
-                 if trace and cmd == "rnd" and device.type == "cuda" else {})
+        for d in cards:
+            torch.cuda.synchronize(d)
+        peaks = [torch.cuda.max_memory_reserved(d) for d in cards]
+        least = (step_least_s(cfg, su, _forms_of(c.traffic["args"]),
+                              len(devices))
+                 if trace and cmd == "rnd" and cards else {})
         r.eng = r.filt = filt = None      # the program's state, freed
-        if device.type == "cuda":
+        if cards:
             torch.cuda.empty_cache()
         verdict = r.judge()
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": peak}
+           "count": len(devices), "memory_peak_bytes": max(peaks, default=0),
+           "memory_peak_bytes_by_card": peaks}
     out = {"correct": verdict["correct"], "attempted": verdict["attempted"],
            "failed": verdict["failed"]}
     units = {m["name"]: m["unit"] for m in c.end_to_end + c.per_layer}
@@ -419,11 +444,11 @@ class _RangeRun:
     (what RndSearch.run does), until the first step boundary past the
     window's end."""
 
-    def __init__(self, c, cfg, filt, offs, size, su, device, seed):
+    def __init__(self, c, cfg, filt, offs, size, su, devices, seed):
         from ecloop_tpu_torch.search.rnd import RndSearch
 
         self.cfg, self.filt, self.su = cfg, filt, su
-        self.eng = RndSearch(cfg, filt, [device], offs=offs, size=size).engine
+        self.eng = RndSearch(cfg, filt, devices, offs=offs, size=size).engine
         self.endo, self.offs, self.size = cfg.endo, offs, size
         self.found, self.subs = [], []
         self.rng = random.Random(_streams(seed)["draws"] ^ 1)
@@ -496,9 +521,10 @@ class _MulRun:
     cli.run_mul does with stdin), until the first chunk past the
     window's end."""
 
-    def __init__(self, c, cfg, filt, offs, size, su, device, seed):
+    def __init__(self, c, cfg, filt, offs, size, su, devices, seed):
         from ecloop_tpu_torch.search import mul
 
+        device, = devices                 # mul cells run on one card
         batch = os.environ.get("ECLOOP_MUL_BATCH",
                                "32768" if device.type == "cuda" else "2048")
         self.eng = mul.MulSearch(cfg, filt, [device], w=mul.W,

@@ -56,13 +56,15 @@ class Spans:
 
 class Sampler:
     """Profiled windows of `window_s` host seconds at the given shares of
-    the measured window [t0, t0 + seconds).  `tick(units)` is called at
+    the measured window [t0, t0 + seconds), each summarized over the
+    `cards` (CUDA device indices) of the run.  `tick(units)` is called at
     each boundary of the work (a step, a job) with the units done since
     the last call; windows open and close only there."""
 
     def __init__(self, t0: float, seconds: float, window_s: float,
-                 at=(0.2, 0.5, 0.8)):
+                 at=(0.2, 0.5, 0.8), cards=None):
         self.window_s = window_s
+        self.cards = cards
         self.starts = [t0 + f * seconds - window_s for f in at]
         self.samples: list[dict] = []
         self.short = 0
@@ -106,7 +108,8 @@ class Sampler:
         self._phase, self._mark = "warm", time.perf_counter()
 
     def _ready(self, prof) -> None:
-        sample = summarize(prof.events(), self._wall, self._units)
+        sample = summarize(prof.events(), self._wall, self._units,
+                           self.cards)
         if sample is None:
             self.short += 1
             if self.short <= TRIES:
@@ -115,15 +118,17 @@ class Sampler:
         self.samples.append(sample)
 
 
-def warm_up() -> None:
-    """Start and stop the profiler once: its first start on a card takes
-    seconds (CUPTI's set-up), which must not fall inside the window."""
+def warm_up(cards) -> None:
+    """Start and stop the profiler once, with an op on each card: its
+    first start takes seconds (CUPTI's set-up), which must not fall
+    inside the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+        for d in cards:
+            torch.zeros(1, device=d).add_(1)
+            torch.cuda.synchronize(d)
 
 
 def _union(intervals):
@@ -162,41 +167,11 @@ def _innermost(spans, lo: float, hi: float) -> list:
     return out
 
 
-def summarize(events, wall_s: float, units: int) -> dict | None:
-    """One kept window: its wall (the profiler step's span on the host,
-    else `wall_s`), units of work, device busy seconds (the union of the
-    device ops' intervals inside the span), device seconds per op name,
-    and the device's idle seconds by the innermost harness span open on
-    the host meanwhile;
-    None when the profiler dropped the window's device records."""
-    from torch.autograd import DeviceType
-
-    dev, host_spans, step, launches = [], [], None, 0
-    for e in events:
-        tr = e.time_range
-        if e.device_type == DeviceType.CUDA:
-            if not getattr(e, "is_user_annotation", False):
-                dev.append((tr.start, tr.end, e.name))
-        elif e.name.startswith("ProfilerStep#"):
-            step = (tr.start, tr.end)
-        elif e.name.startswith(SPAN_PREFIX):
-            host_spans.append((tr.start, tr.end, e.name[len(SPAN_PREFIX):]))
-        elif e.name == "cudaGraphLaunch":
-            launches += 1
-    if not dev or len(dev) < launches:
-        return None
-    lo, hi = step if step else (min(d[0] for d in dev), max(d[1] for d in dev))
-    per_op = collections.defaultdict(float)
-    clipped = []
-    for a, b, name in dev:
-        a, b = max(a, lo), min(b, hi)
-        if b > a:
-            clipped.append((a, b))
-            per_op[name] += (b - a) / 1e6
-    busy = _union(clipped)
+def _idle_by_span(busy, segs, lo: float, hi: float) -> dict:
+    """Seconds of [lo, hi] outside the `busy` intervals, by the span of
+    the host pieces `segs` (`_innermost`) they fall in."""
     gaps = collections.defaultdict(float)
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
-    segs = _innermost(host_spans, lo, hi)
     i = 0
     for g0, g1 in zip(edges[0::2], edges[1::2]):
         while i < len(segs) and segs[i][1] <= g0:
@@ -207,6 +182,60 @@ def summarize(events, wall_s: float, units: int) -> dict | None:
             if min(b, g1) > max(a, g0):
                 gaps[name] += (min(b, g1) - max(a, g0)) / 1e6
             j += 1
+    return gaps
+
+
+def summarize(events, wall_s: float, units: int, cards=None) -> dict | None:
+    """One kept window: its wall (the profiler step's span on the host,
+    else `wall_s`), units of work, and per card of `cards` (the CUDA
+    device indices of the run; those with device ops by default) the
+    device's busy seconds (the union of its ops' intervals inside the
+    span) and its idle seconds by the innermost harness span open on the
+    host meanwhile.  `busy_s` and `idle` are the means over the cards,
+    `busy_by_device` each card's busy seconds in the order of `cards`,
+    `device_ops` the device seconds per op name summed over the cards.
+    None when the profiler dropped the window's device records, or all
+    of one card's."""
+    from torch.autograd import DeviceType
+
+    dev, host_spans, step, launches = collections.defaultdict(list), [], None, 0
+    for e in events:
+        tr = e.time_range
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                dev[e.device_index].append((tr.start, tr.end, e.name))
+        elif e.name.startswith("ProfilerStep#"):
+            step = (tr.start, tr.end)
+        elif e.name.startswith(SPAN_PREFIX):
+            host_spans.append((tr.start, tr.end, e.name[len(SPAN_PREFIX):]))
+        elif e.name == "cudaGraphLaunch":
+            launches += 1
+    n_ops = sum(len(v) for v in dev.values())
+    if not n_ops or n_ops < launches:
+        return None
+    cards = sorted(dev) if cards is None else list(cards)
+    if set(dev) - set(cards):
+        raise ValueError(f"device ops on cards {sorted(dev)}, the run's "
+                         f"are {cards}")
+    if not all(dev[c] for c in cards):
+        return None
+    every = [d for c in cards for d in dev[c]]
+    lo, hi = (step if step else (min(d[0] for d in every),
+                                 max(d[1] for d in every)))
+    segs = _innermost(host_spans, lo, hi)
+    per_op = collections.defaultdict(float)
+    busy, gaps = [], collections.defaultdict(float)
+    for c in cards:
+        clipped = []
+        for a, b, name in dev[c]:
+            a, b = max(a, lo), min(b, hi)
+            if b > a:
+                clipped.append((a, b))
+                per_op[name] += (b - a) / 1e6
+        union = _union(clipped)
+        busy.append(sum(b - a for a, b in union) / 1e6)
+        for name, s in _idle_by_span(union, segs, lo, hi).items():
+            gaps[name] += s / len(cards)
     return {"wall_s": (hi - lo) / 1e6 if step else wall_s, "units": units,
-            "busy_s": sum(b - a for a, b in busy) / 1e6,
+            "busy_s": sum(busy) / len(cards), "busy_by_device": busy,
             "device_ops": dict(per_op), "idle": dict(gaps)}

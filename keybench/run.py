@@ -56,14 +56,16 @@ def main() -> int:
         print("no CUDA device: the benchmark runs on the card only",
               file=sys.stderr)
         return 2
-    if torch.cuda.device_count() < cell.workload["chips"]:
+    chips = cell.workload["chips"]
+    if torch.cuda.device_count() < chips:
         print(f"{torch.cuda.device_count()} CUDA devices, the cell asks for "
-              f"{cell.workload['chips']}", file=sys.stderr)
+              f"{chips}", file=sys.stderr)
         return 2
     print(f"card: {_power_line()}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", file=sys.stderr)
     result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                              torch.device("cuda:0"), T_START)
+                              [torch.device("cuda", i) for i in range(chips)],
+                              T_START)
     loaded = harness.forbidden_modules()
     if loaded:
         print(f"loaded what the benchmark must not: {loaded}", file=sys.stderr)

@@ -12,7 +12,7 @@ from keybench import profiling, readers
 def _ev(name, a, b, dev=False, note=False):
     return types.SimpleNamespace(
         name=name, device_type=DeviceType.CUDA if dev else DeviceType.CPU,
-        is_user_annotation=note, time_range=types.SimpleNamespace(start=a, end=b))
+        device_index=0, is_user_annotation=note, time_range=types.SimpleNamespace(start=a, end=b))
 
 
 def _window():
