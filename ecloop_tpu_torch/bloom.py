@@ -163,6 +163,33 @@ def adaptive_probe_count(bits: np.ndarray, target_fp: float = 1e-6) -> int:
     return max(1, min(20, k))
 
 
+POW2_BITS_PER_TARGET = 128   # upstream's bloom in front of a list (SURVEY.md)
+POW2_FP = 1e-9               # the list prefilter's estimated false positives a key
+
+
+def pow2_fp(n: int, log2_bits: int, nprobes: int) -> float:
+    """The estimated false-positive rate of a pow2 prefilter of n targets
+    over 2^log2_bits bits: its fill 1 - e^(-k n / m) to the power of its
+    k probes.  Probes past the fifth reuse bits of the first five's
+    words (the shifts 24 and 28 of the same u64), so a sixth passes
+    more often than the fill says: at 10,128 targets, 2^21 bits and 6
+    probes, ~7e-10 of random hashes pass against the estimate's 5.4e-10."""
+    return (1.0 - math.exp(-nprobes * n / (1 << log2_bits))) ** nprobes
+
+
+def pow2_sizing(n: int) -> tuple[int, int]:
+    """The list prefilter's (log2_bits, probes) for n targets: the power
+    of two at or above POW2_BITS_PER_TARGET bits a target, 2^16 to
+    2^37, and the fewest probes, at most 20, whose estimated rate
+    (`pow2_fp`) is at most POW2_FP.  10,128 targets: 2^21 bits (256 KB)
+    and 6 probes, 5.4e-10."""
+    n = max(1, n)
+    log2_bits = min(37, max(16, (n * POW2_BITS_PER_TARGET - 1).bit_length()))
+    k = next((k for k in range(1, 21) if pow2_fp(n, log2_bits, k) <= POW2_FP),
+             20)
+    return log2_bits, k
+
+
 def build_pow2(hashes: np.ndarray, log2_bits: int | None = None,
                nprobes: int = 2) -> tuple[np.ndarray, int]:
     """Host-build the power-of-two prefilter over target hashes.

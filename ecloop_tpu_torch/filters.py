@@ -8,9 +8,9 @@ Reference semantics, as in `ecloop_tpu.filters`:
 
 The device runs a cheap prefilter over every candidate hash: a compare
 of the first word against the targets' first words for lists of up to
-ECLOOP_CMP_MAX (2048) targets, a power-of-two bloom probe for longer
-lists, the exact ECBF probe for a .blf.  The host confirms the rare hits
-with exact semantics.
+ECLOOP_CMP_MAX (CMP_MAX, 2048) targets, a power-of-two bloom probe for
+longer lists, the exact ECBF probe for a .blf.  The host confirms the
+rare hits with exact semantics.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ import os
 import numpy as np
 import torch
 
-from . import bloom, native
+from . import bloom, native, trace
+
+CMP_MAX = 2048               # ECLOOP_CMP_MAX's default
 
 
 @dataclasses.dataclass
@@ -32,6 +34,7 @@ class Filter:
     device_bits: np.ndarray           # u32 bit array for the device probe
     pow2_log2: int | None             # set in list mode
     blf_probes: int = 20              # device probes evaluated (bloom mode)
+    pow2_probes: int = 2              # device probes evaluated (list, pow2)
 
     @property
     def count(self) -> int:
@@ -40,7 +43,8 @@ class Filter:
     def use_cmp(self) -> bool:
         if self.mode != "list":
             return False
-        return len(self.targets) <= int(os.environ.get("ECLOOP_CMP_MAX", 2048))
+        return len(self.targets) <= int(os.environ.get("ECLOOP_CMP_MAX",
+                                                       CMP_MAX))
 
     # --- device side ---
     def first_words(self, device) -> torch.Tensor | None:
@@ -61,7 +65,8 @@ class Filter:
                                      nprobes=self.blf_probes)
         if first_words is not None:
             return probe_first_words(h[0], first_words)
-        return bloom.probe_pow2(h, bits, log2_bits=self.pow2_log2)
+        return bloom.probe_pow2(h, bits, log2_bits=self.pow2_log2,
+                                nprobes=self.pow2_probes)
 
     # --- host side (authoritative) ---
     def confirm(self, h160_bytes: bytes) -> bool:
@@ -143,10 +148,23 @@ def _sorted_unique(hashes: np.ndarray) -> np.ndarray:
 
 
 def filter_from_hashes(hashes: np.ndarray) -> Filter:
-    hashes = _sorted_unique(hashes)
-    bits, log2b = bloom.build_pow2(hashes)
-    return Filter(mode="list", targets=hashes, blf=None,
-                  device_bits=bits, pow2_log2=log2b)
+    """The exact filter of a hash160 list, sorted and deduplicated, with
+    its pow2 prefilter.  A list longer than CMP_MAX, which the device
+    probes with it, takes `bloom.pow2_sizing` (about 1e-9 false
+    positives a hashed key); a shorter one, which the device compares
+    unless ECLOOP_CMP_MAX is lowered below its length, keeps the JAX
+    package's ~64 bits a target and 2 probes.  The tracer counts the
+    targets, log2_bits and probes of each list built."""
+    with trace.span("filter.build"):
+        hashes = _sorted_unique(hashes)
+        n = len(hashes)
+        log2b, probes = bloom.pow2_sizing(n) if n > CMP_MAX else (None, 2)
+        bits, log2b = bloom.build_pow2(hashes, log2b, probes)
+    trace.count("filter.list_targets", n)
+    trace.count("filter.list_log2_bits", log2b)
+    trace.count("filter.list_probes", probes)
+    return Filter(mode="list", targets=hashes, blf=None, device_bits=bits,
+                  pow2_log2=log2b, pow2_probes=probes)
 
 
 def load_filter(path: str) -> Filter:

@@ -297,17 +297,19 @@ def _check_probe_inputs(bits: torch.Tensor, first_words, device) -> None:
 def _probe_args(filt: filters.Filter, bits: torch.Tensor,
                 first_words: torch.Tensor | None) -> tuple:
     """The probe's launch arguments (csrc/probe.cuh): mode, bits, m, r,
-    nprobes, log2_bits, first words and their count.  The exact probe
-    takes nbits = 64 m with m <= 2^31 and r = floor((2^64 - 1) / m)."""
+    nprobes (the filter's `blf_probes` or `pow2_probes`), log2_bits,
+    first words and their count.  The exact probe takes nbits = 64 m
+    with m <= 2^31 and r = floor((2^64 - 1) / m)."""
     if filt.mode == "bloom":
         mode, nbits, nprobes = "exact", filt.blf.nbits, filt.blf_probes
         r = bloom.exact_reciprocal(nbits)
-        if not 1 <= nprobes <= 20:
-            raise ValueError(f"probes: {nprobes}, expected 1 to 20")
     elif first_words is not None:
         mode, nbits, nprobes, r = "compare", 0, 0, 0
     else:
-        mode, nbits, nprobes, r = "pow2", 1 << filt.pow2_log2, 2, 0
+        mode, nbits, nprobes = "pow2", 1 << filt.pow2_log2, filt.pow2_probes
+        r = 0
+    if mode != "compare" and not 1 <= nprobes <= 20:
+        raise ValueError(f"probes: {nprobes}, expected 1 to 20")
     if bits.numel() * 32 < nbits:
         raise ValueError(f"bits: {bits.numel()} words, the {mode} probe "
                          f"reads {nbits} bits")

@@ -241,7 +241,7 @@ def probe_reads(filt, h: torch.Tensor, bits: torch.Tensor,
     elif first_words is not None:
         return 0
     else:
-        count = 2
+        count = filt.pow2_probes
 
         def upto(p):
             return bloom.probe_pow2(h, bits, filt.pow2_log2, p)
