@@ -408,6 +408,10 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool, devices,
         out["metrics"] = metrics
         out["device"] = dev
         out["breakdown"] = _breakdown(samples)
+        # why a reading is missing: windows summarized, and windows whose
+        # device records the profiler dropped
+        out["windows_kept"] = len(samples)
+        out["windows_dropped"] = sampler.short
     else:
         values = dict(window["metrics"], setup_s=setup_s)
         out["metrics"] = {m["name"]: {"value": values[m["name"]],

@@ -1,4 +1,4 @@
 """Device idle share of a range search over a hash160 list past the
-compare path: 1 - the union of the device ops' intervals / the host
-wall of the profiled windows."""
+compare path: 1 - the union of the device ops' intervals / the profiled
+windows' wall (the interval their busy time is measured over)."""
 from keybench.readers import idle_share as read  # noqa: F401

@@ -1,3 +1,4 @@
 """Device idle share of `mul`: 1 - the union of the device ops'
-intervals / the host wall of the profiled windows."""
+intervals / the profiled windows' wall (the interval their busy time is
+measured over)."""
 from keybench.readers import idle_share as read  # noqa: F401

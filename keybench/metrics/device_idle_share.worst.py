@@ -1,6 +1,6 @@
 """Device idle share of the idlest card: 1 - its union of device ops'
-intervals / the host wall of the profiled windows, the largest over the
-cards of the run."""
+intervals / the profiled windows' wall (the interval their busy time is
+measured over), the largest over the cards of the run."""
 
 
 def read(rec):

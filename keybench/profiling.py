@@ -86,13 +86,15 @@ class Sampler:
         elif self._phase == "active":
             self._units += units
             if now - self._mark >= self.window_s:
-                self._wall = now - self._mark
+                self._phase = "kept"          # `_ready` summarizes it
                 self._prof.step()
                 self._prof.stop()
                 self._prof = None
 
     def close(self) -> None:
-        """Drop a window still open when the measured window ends."""
+        """Drop a window still open when the measured window ends: its
+        profiler stops, and `_ready`, which stopping an active window
+        fires, summarizes only a window that `tick` closed."""
         if self._prof is not None:
             self._prof.stop()
             self._prof = None
@@ -108,8 +110,9 @@ class Sampler:
         self._phase, self._mark = "warm", time.perf_counter()
 
     def _ready(self, prof) -> None:
-        sample = summarize(prof.events(), self._wall, self._units,
-                           self.cards)
+        if self._phase != "kept":
+            return
+        sample = summarize(prof.events(), self._units, self.cards)
         if sample is None:
             self.short += 1
             if self.short <= TRIES:
@@ -185,15 +188,20 @@ def _idle_by_span(busy, segs, lo: float, hi: float) -> dict:
     return gaps
 
 
-def summarize(events, wall_s: float, units: int, cards=None) -> dict | None:
-    """One kept window: its wall (the profiler step's span on the host,
-    else `wall_s`), units of work, and per card of `cards` (the CUDA
-    device indices of the run; those with device ops by default) the
-    device's busy seconds (the union of its ops' intervals inside the
-    span) and its idle seconds by the innermost harness span open on the
-    host meanwhile.  `busy_s` and `idle` are the means over the cards,
-    `busy_by_device` each card's busy seconds in the order of `cards`,
-    `device_ops` the device seconds per op name summed over the cards.
+def summarize(events, units: int, cards=None) -> dict | None:
+    """One kept window: its wall, units of work, and per card of `cards`
+    (the CUDA device indices of the run; those with device ops by
+    default) the device's busy seconds (the union of its ops' intervals
+    inside the wall) and its idle seconds by the innermost harness span
+    open on the host meanwhile.  The wall is the profiler step's span on
+    the host, else (torch 2.11 with CUDA records no `ProfilerStep#`) the
+    extent of the window's device ops over the cards, first start to
+    last end: the interval busy time is measured over, so busy_s <=
+    wall_s == busy_s + sum(idle).  Not the host's wall between ticks:
+    the window's last call runs on the card after it.  `busy_s` and
+    `idle` are the means over the cards, `busy_by_device` each card's
+    busy seconds in the order of `cards`, `device_ops` the device
+    seconds per op name summed over the cards.
     None when the profiler dropped the window's device records, or all
     of one card's."""
     from torch.autograd import DeviceType
@@ -236,6 +244,6 @@ def summarize(events, wall_s: float, units: int, cards=None) -> dict | None:
         busy.append(sum(b - a for a, b in union) / 1e6)
         for name, s in _idle_by_span(union, segs, lo, hi).items():
             gaps[name] += s / len(cards)
-    return {"wall_s": (hi - lo) / 1e6 if step else wall_s, "units": units,
+    return {"wall_s": (hi - lo) / 1e6, "units": units,
             "busy_s": sum(busy) / len(cards), "busy_by_device": busy,
             "device_ops": dict(per_op), "idle": dict(gaps)}

@@ -4,8 +4,9 @@ it finds nothing to read; the harness then leaves the metric out.
 
 The record: `window_s` (the measured window's host wall), `spans`
 ({span: {"s": host seconds, "n": calls}} over the window), `samples`
-(the profiled windows: `wall_s`, `units` of work done in it, `busy_s`,
-`device_ops` {name: device seconds}, `idle` {span: idle seconds}) and
+(the profiled windows: `wall_s`, the interval `busy_s` is measured
+over, `units` of work done in it, `busy_s`, `device_ops` {name:
+device seconds}, `idle` {span: idle seconds}) and
 `least_s` ({account term: least seconds of one add step}).
 """
 

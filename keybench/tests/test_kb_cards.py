@@ -137,7 +137,7 @@ RECORDED = {'samples': [{'wall_s': 0.01,
 
 
 def _samples(cards=(0,), skew=0):
-    return [profiling.summarize(window(seed, cards, skew), 1.0, units,
+    return [profiling.summarize(window(seed, cards, skew), units,
                                 list(cards))
             for seed, units in WINDOWS]
 
@@ -147,7 +147,7 @@ def test_one_card_is_the_recorded_summary():
         assert got.pop("busy_by_device") == [want["busy_s"]]
         assert got == want                       # exactly, not approximately
     # the cards default to those that ran an op
-    assert profiling.summarize(window(1), 1.0, 17) == _samples()[0]
+    assert profiling.summarize(window(1), 17) == _samples()[0]
 
 
 def test_one_card_readers_read_as_recorded():
@@ -184,7 +184,7 @@ def test_two_cards_busy_and_idle_per_card():
         ev = window(seed, (0, 1), 700)
         alone = [profiling.summarize([e for e in ev if not (
             e.device_type == DeviceType.CUDA and e.device_index != c)],
-            1.0, units, [c]) for c in (0, 1)]
+            units, [c]) for c in (0, 1)]
         assert s["busy_by_device"] == [a["busy_s"] for a in alone]
         assert s["busy_by_device"][1] < s["busy_by_device"][0]
         assert s["busy_s"] == pytest.approx(
@@ -203,9 +203,9 @@ def test_two_cards_busy_and_idle_per_card():
 def test_a_card_without_records_drops_the_window():
     ev = [e for e in window(1, (0, 1)) if not (
         e.device_type == DeviceType.CUDA and e.device_index == 1)]
-    assert profiling.summarize(ev, 1.0, 1, [0, 1]) is None
+    assert profiling.summarize(ev, 1, [0, 1]) is None
     with pytest.raises(ValueError):
-        profiling.summarize(window(1, (0, 1)), 1.0, 1, [0])
+        profiling.summarize(window(1, (0, 1)), 1, [0])
 
 
 def test_worst_idle_share_and_launch_share_read_the_records():
